@@ -1,0 +1,28 @@
+"""nmcfluid_torch — the neural Monte Carlo fluid solver in PyTorch + CUDA.
+
+A port of `nmcfluid` (the JAX package beside it, which stays the
+reference). Module paths and function names follow the JAX package, so
+`nmcfluid_torch/wost/gen.py::estimate_solution_and_gradient_gen` is the
+counterpart of `nmcfluid/wost/gen.py::estimate_solution_and_gradient_gen`.
+
+Slice 1 covers the Taylor-Green frame: SIREN velocity field, fused Adam
+phase fits (a hand-written CUDA kernel on the GPU, its plain PyTorch twin
+on the CPU), the divergence grid, and the walk-on-stars pressure solve
+with the generation executor. Branches outside that slice raise
+NotImplementedError naming the scene or flag.
+
+Precision: the SIREN's sin(30 z) layers amplify matmul rounding, and plain
+bf16 matmuls failed the Taylor-Green error gate in the JAX package, so the
+port runs in float32 and keeps TF32 off.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def get_device(device=None) -> torch.device:
+    """`device` as a torch.device; None picks the GPU when one is present."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)

@@ -1,0 +1,75 @@
+"""Inverse-CDF tables for the screened in-ball radius draw.
+
+`build_table` is the JAX package's float64 numpy/scipy table, copied
+(nmcfluid/ops/radial_tables.py:41-57): the quantiles of the scale-free
+radial density of t = r/R, one row per log-spaced Z = sqrt(lam)*R.
+`sample_t_screened_u` is the direct bilinear gather draw. The JAX package
+draws on the TPU with a gather-free one-hot matmul form instead; the two
+agree to about 1 ulp (radial_tables.py:124-129), and on a GPU a per-lane
+gather is a plain load.
+"""
+import math
+
+import numpy as np
+import torch
+
+_N_Z = 128           # log-spaced Z rows
+_N_U = 257           # quantile columns
+_Z_MIN, _Z_MAX = 1e-3, 4e3
+_N_S = 8193          # integration grid per row
+
+
+def _scaled_g2d(t, Z):
+    """e^{z} * 2pi * G_ball2D(r)|_{r=tR} up to positive factors (f64)."""
+    import scipy.special as sp
+    z = Z * t
+    return sp.k0e(z) - sp.i0e(z) * (sp.k0e(Z) / sp.i0e(Z)) * np.exp(
+        2.0 * (z - Z))
+
+
+def build_table(dim: int) -> np.ndarray:
+    """(N_Z, N_U) table of t = r/R quantiles for the screened density."""
+    if dim != 2:
+        raise NotImplementedError("radial tables: only the 2D density is "
+                                  "ported (3D scenes are not yet)")
+    zs = np.geomspace(_Z_MIN, _Z_MAX, _N_Z)
+    us = np.linspace(0.0, 1.0, _N_U)
+    s = np.linspace(1e-7, 1.0, _N_S)
+    out = np.empty((_N_Z, _N_U))
+    for i, Z in enumerate(zs):
+        g = _scaled_g2d(s, Z)
+        # radial density ~ s^{dim-1} * G * e^{-z}; e^{-z} = e^{-Z s}
+        rho = np.maximum(s ** (dim - 1) * g * np.exp(-Z * s), 0.0)
+        cdf = np.concatenate([[0.0], np.cumsum((rho[1:] + rho[:-1])
+                                               * np.diff(s) / 2.0)])
+        cdf /= cdf[-1]
+        cdf = np.maximum.accumulate(cdf)    # strictly increasing for interp
+        out[i] = np.interp(us, cdf, s)
+    return out
+
+
+_LOG_Z_MIN = math.log(_Z_MIN)
+_DLOG = (math.log(_Z_MAX) - _LOG_Z_MIN) / (_N_Z - 1)
+
+
+def pack_quads(table: np.ndarray) -> np.ndarray:
+    """(N_Z, N_U) -> (N_Z-1, N_U-1, 4) bilinear quads [t00, t01, t10, t11]:
+    the four neighbours of a draw in one contiguous row."""
+    return np.ascontiguousarray(np.stack(
+        [table[:-1, :-1], table[:-1, 1:], table[1:, :-1], table[1:, 1:]],
+        axis=-1))
+
+
+def sample_t_screened_u(table_quads, Z, u):
+    """t = r/R from a uniform u by bilinear inverse-CDF lookup.
+    `table_quads`: float32 tensor pack_quads(build_table(2)) on Z's
+    device. Z, u, out: same shape."""
+    zi = (torch.log(torch.clamp(Z, _Z_MIN, _Z_MAX)) - _LOG_Z_MIN) / _DLOG
+    i0 = torch.clamp(torch.floor(zi).to(torch.int64), 0, _N_Z - 2)
+    wi = torch.clamp(zi - i0, 0.0, 1.0)
+    uj = u * (_N_U - 1)
+    j0 = torch.clamp(torch.floor(uj).to(torch.int64), 0, _N_U - 2)
+    wj = uj - j0
+    q = table_quads[i0, j0]                          # (..., 4), one gather
+    return ((1 - wi) * ((1 - wj) * q[..., 0] + wj * q[..., 1])
+            + wi * ((1 - wj) * q[..., 2] + wj * q[..., 3]))

@@ -1,0 +1,474 @@
+"""The neural Monte Carlo fluid stepper (port of nmcfluid/sim/fluid.py).
+
+Per timestep (model_split.py:44-82), for the Taylor-Green slice:
+    advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
+    project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
+             cloud, then fit u(x) to u_prev(x) - grad p(x)
+with `add_source` fitting the initial field once first. Every phase fit
+runs the fused fit (sim/fitkernel.py) on a K-batch pool and then the
+closed-form head solve (`ls_head`). On a CUDA device the fit is the
+hand-written kernel; on the CPU its plain twin.
+
+Randomness walks the JAX package's key tree call for call through a key
+object (utils/keys.py), so the JAX-replay key of the tests reproduces a
+JAX step. Branches outside the Taylor-Green slice raise
+NotImplementedError naming the flag.
+"""
+import math
+import time
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import get_device
+from ..geometry import analytic2d
+from ..models.boundary import apply_boundary
+from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
+                            init_siren)
+from ..utils.keys import Key
+from ..wost.gen import estimate_solution_and_gradient_gen
+from ..wost.solver import WalkSettings, WostScene
+from . import sampling
+from .fitkernel import fused_adam_fit
+
+
+class SimState(NamedTuple):
+    """Everything that persists between timesteps: the network weights."""
+    params: list            # velocity_field
+    P: torch.Tensor         # mean pressure (base.py:305)
+    eps: float              # boundary ramp width
+    timestep: int
+    key: object             # key object (utils/keys.py)
+
+
+class FitStats(NamedTuple):
+    iters: int
+    loss: torch.Tensor
+
+
+def _unsupported(flag, value):
+    raise NotImplementedError(
+        f"NeuralFluid: {flag}={value!r} is not ported yet (the Taylor-Green "
+        "slice runs the defaults)")
+
+
+class NeuralFluid:
+    """Host-side orchestrator of the phase fits and the pressure solve.
+
+    Takes the JAX package's constructor arguments; those outside the
+    Taylor-Green slice raise NotImplementedError when set. `device` is
+    where every tensor is created (None: the GPU when one is present)."""
+
+    def __init__(self, scene, *, max_n_iters: Optional[int] = None,
+                 sample_resolution: Optional[int] = None,
+                 wost_resolution: Optional[int] = None,
+                 div_resolution: Optional[int] = None,
+                 n_walks: Optional[int] = None,
+                 walk_settings: Optional[WalkSettings] = None,
+                 adv_ref: bool = False,
+                 projection: str = "wost",
+                 lr_schedule: str = "constant",
+                 param_ema: float = 0.0,
+                 grad_clip: float = -1.0,
+                 fit_plateau: int = 0,
+                 ls_head: int = 8,
+                 fit_mode: str = "auto",
+                 fit_pool: int = 512,
+                 fit_ensemble: int = 1,
+                 loss_trace: int = 0,
+                 wost_source: str = "grid",
+                 mesh=None,
+                 device=None):
+        for flag, value, default in (
+                ("adv_ref", adv_ref, False), ("projection", projection, "wost"),
+                ("fit_ensemble", fit_ensemble, 1),
+                ("wost_source", wost_source, "grid"), ("mesh", mesh, None)):
+            if value != default:
+                _unsupported(flag, value)
+        if fit_mode not in ("auto", "fused"):
+            # the fresh-batch fit (_adam_fit_single) is not ported yet
+            _unsupported("fit_mode", fit_mode)
+        if lr_schedule not in ("constant", "cosine", "tail"):
+            raise ValueError(f"NeuralFluid: unknown lr_schedule "
+                             f"{lr_schedule!r}")
+        if scene.dim != 2 or scene.reset_wts:
+            _unsupported("scene", scene.name)
+        self.scene = scene
+        self.device = get_device(device)
+        self.lr_schedule = lr_schedule
+        self.param_ema = param_ema
+        self.grad_clip = grad_clip
+        self.fit_plateau = fit_plateau
+        self.loss_trace = loss_trace
+        self.ls_head = ls_head
+        self.fit_pool = fit_pool
+        self.max_n_iters = max_n_iters or scene.max_n_iters
+        self.sample_resolution = sample_resolution or scene.sample_resolution
+        self.wost_resolution = wost_resolution or scene.wost_resolution
+        # the 2D divergence grid is 1000^2 in the reference (model_split.py:255)
+        self.div_resolution = div_resolution or 1000
+        self.n_batch = self.sample_resolution ** 2
+        self.n_pressure = self.wost_resolution ** 2
+        # 65,536-point chunks: they fix the key tree (one fold_in per chunk)
+        # and bound walk memory at 524k lanes per generation
+        self.wost_chunk = min(self.n_pressure, 65536)
+        self.walk_settings = walk_settings or scene.walk_settings(
+            n_walks=n_walks or scene.n_walks)
+        self.siren_cfg = SirenConfig(
+            scene.dim, scene.dim,
+            num_hidden_layers=scene.num_hidden_layers,
+            hidden_features=scene.hidden_features,
+            nonlinearity=scene.nonlinearity)
+        if not _fused_supported(self):
+            # the JAX package falls back to _adam_fit_single here
+            raise NotImplementedError(
+                "NeuralFluid: param_ema, fit_plateau, grad_clip, loss_trace "
+                "and non-sine networks need the fresh-batch fit "
+                "(_adam_fit_single), which is not ported yet")
+        self.q = analytic2d
+        self.boundary = scene.boundary.to(self.device)
+        ss = scene.scene_size
+
+        def source_lookup(y, grid):
+            return sampling.nearest_lookup(grid, ss, y)
+
+        self._wost_scene = WostScene(
+            dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
+            absorption=scene.absorption)
+        self._bbox_lo = torch.tensor([ss[0], ss[2]], dtype=torch.float32,
+                                     device=self.device)
+        self._bbox_hi = torch.tensor([ss[1], ss[3]], dtype=torch.float32,
+                                     device=self.device)
+        # opt-in per-stage wall-clock breakdown (synchronized per stage)
+        self.profile = False
+        self.stage_times: dict = {}
+
+    def _timed(self, name, fn, *args):
+        """Run a stage; when self.profile, synchronize and accumulate its
+        wall-clock under stage_times[name]."""
+        if not self.profile:
+            return fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stage_times[name] = (self.stage_times.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+        return out
+
+    # ------------------------------------------------------------- velocity
+
+    def velocity(self, params, x, *, eps, t=0):
+        """query_velocity (base.py:158-224): raw net + scene hard BCs."""
+        return apply_boundary(self.scene, apply_siren(params, self.siren_cfg,
+                                                      x), x, eps=eps, t=t)
+
+    def velocity_affine(self, x, *, eps, t):
+        """(A, c) with apply_boundary(raw) == A @ raw + c at x:
+        A (..., D, D), c (..., D)."""
+        dim = self.scene.dim
+
+        def g(raw):
+            return apply_boundary(self.scene, raw, x, eps=eps, t=t)
+
+        zero = torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,
+                           device=x.device)
+        c = g(zero)
+        cols = []
+        for d in range(dim):
+            e = zero.clone()
+            e[..., d] = 1.0
+            cols.append(g(e) - c)
+        return torch.stack(cols, dim=-1), c
+
+    # ----------------------------------------------------------------- init
+
+    def init_state(self, seed: int = 0, key=None) -> SimState:
+        """Random SIREN weights from `seed`, or from a key object `key`
+        (the tests pass one that replays jax.random)."""
+        key = Key(seed) if key is None else key
+        kp, key = key.split(2)
+        params = init_siren(kp, self.siren_cfg, self.device)
+        return SimState(params=params, P=torch.zeros((), device=self.device),
+                        eps=float(self.scene.bdry_eps), timestep=0, key=key)
+
+    # ------------------------------------------------------------ public API
+
+    def add_source(self, state: SimState) -> SimState:
+        """Fit the initial condition (base.py:313-335)."""
+        key, k1, _ = state.key.split(3)
+        params, stats = self._timed("source_fit", _fit_source, self,
+                                    state.params, k1, state.eps,
+                                    state.timestep)
+        self._last_stats = stats
+        return state._replace(params=params, key=key)
+
+    def step(self, state: SimState) -> SimState:
+        """One operator-split timestep (model_split.py:44-82)."""
+        state = state._replace(timestep=state.timestep + 1)
+        key, _, k2, k3, k4 = state.key.split(5)
+        prev = state.params
+        p1, st_a = self._timed(
+            "advect_fit", _fit_advect, self, prev, prev, self.scene.dt, k2,
+            state.eps, state.timestep)
+        p2, P, st_p = self._project(state, p1, p1, k3, k4)
+        self._last_stats = (st_a, st_p)
+        return state._replace(params=p2, P=P, key=key)
+
+    def _project(self, state, params_init, prev, k_wost, k_fit):
+        """Pressure solve + projection fit (model_split.py:245-284)."""
+        div_grid = self._timed("div_grid", _divergence_grid, self, prev,
+                               state.eps, state.timestep)
+        chunks = [self._timed("wost_solve", _pressure_solve, self,
+                              (div_grid,), k_wost.fold_in(c))
+                  for c in range(self.n_pressure // self.wost_chunk)]
+        pts, valid, p, grad_p = (torch.cat(xs) for xs in zip(*chunks))
+        self._last_projection = (pts, p, grad_p, div_grid)
+        P = torch.mean(p)     # model_split.py:219
+        params, stats = self._timed(
+            "project_fit", _fit_project, self, params_init, prev, pts,
+            grad_p, k_fit, state.eps, state.timestep)
+        return params, P, stats
+
+
+# ------------------------------------------------------------ phase fits
+
+
+def _fused_supported(fluid):
+    """Feature gate of the fused fit (fluid.py:608-632): no parameter EMA,
+    plateau stop, gradient clipping or loss trace, and a sine network."""
+    return (fluid.param_ema == 0.0 and fluid.fit_plateau == 0
+            and fluid.grad_clip <= 0.0 and fluid.loss_trace == 0
+            and fluid.siren_cfg.nonlinearity == "sine")
+
+
+def _cosine_decay(lr, decay_steps, alpha, count):
+    """optax.cosine_decay_schedule(lr, decay_steps, alpha) at int64 counts,
+    in float32."""
+    t = torch.clamp(count, max=decay_steps).to(torch.float32)
+    decay = 0.5 * (1.0 + torch.cos(math.pi * t / float(decay_steps)))
+    return lr * ((1.0 - alpha) * decay + alpha)
+
+
+def _fit_lr_array(fluid):
+    """Per-iteration learning rates of the lr schedule (fluid.py:635-650):
+    the scene's lr as a scalar when constant, else an (n_iters,) array."""
+    lr, n = float(fluid.scene.lr), fluid.max_n_iters
+    if fluid.lr_schedule == "constant":
+        return lr
+    i = torch.arange(n)
+    if fluid.lr_schedule == "cosine":
+        return _cosine_decay(lr, n, 0.01, i)
+    # "tail": constant for 80% of the fit, then a cosine decay
+    hold = int(n * 0.8)
+    return torch.where(i < hold, torch.tensor(lr, dtype=torch.float32),
+                       _cosine_decay(lr, max(1, n - hold), 0.02, i - hold))
+
+
+def _fused_fit(fluid, params0, key, batch_fn):
+    """Phase fit on a pool of K minibatches (fluid.py:653-685): build the
+    pool (x, A, c, target, w) from keys fold_in(key, i), i < K, run the
+    fused fit, then the closed-form head solve."""
+    xs, As, cs, ts, ws = [], [], [], [], []
+    # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
+    for i in range(fluid.fit_pool):
+        x, target, w = batch_fn.batch(key.fold_in(i))
+        A, c = batch_fn.affine(x)
+        for lst, a in zip((xs, As, cs, ts, ws), (x, A, c, target, w)):
+            lst.append(a)
+    pool = tuple(torch.stack(lst) for lst in (xs, As, cs, ts, ws))
+    params, loss = fused_adam_fit(params0, fluid.siren_cfg, pool,
+                                  fluid.max_n_iters, _fit_lr_array(fluid))
+    if fluid.ls_head > 0:
+        params = _ls_head_solve(fluid, params, key, batch_fn)
+    return params, FitStats(iters=fluid.max_n_iters, loss=loss)
+
+
+def _batch_loss(batch_fn, params, x, target, w, dim):
+    u = batch_fn.velocity(params, x)
+    se = torch.sum((u - target) ** 2, dim=-1)
+    return torch.sum(w * se) / (torch.clamp(torch.sum(w), min=1.0) * dim)
+
+
+def _ls_head_solve(fluid, params, key, batch_fn):
+    """Closed-form finish of the phase fit (fluid.py:688-752): solve the
+    final linear layer by weighted least squares over `fluid.ls_head`
+    fresh minibatches with the trunk fixed, in delta form, by an
+    eigendecomposition with a 1e-5 relative cutoff; keep the Adam endpoint
+    when a fresh batch says the solve did not help."""
+    W, b = params[-1]
+    dim = fluid.scene.dim
+    h1 = W.shape[0] + 1                       # features + bias column
+    dev = W.device
+    M = torch.zeros((h1, dim, h1, dim), dtype=torch.float32, device=dev)
+    rhs = torch.zeros((h1, dim), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for j in range(fluid.ls_head):
+            kb = key.fold_in(fluid.max_n_iters + 1 + j)
+            x, target, w = batch_fn.batch(kb)
+            phi = batch_fn.features(params, x)
+            phi1 = torch.cat([phi, torch.ones_like(phi[..., :1])], -1)
+            A, _ = batch_fn.affine(x)
+            y = target - batch_fn.velocity(params, x)   # residual
+            G = torch.einsum("nde,ndf->nef", A, A)
+            Ay = torch.einsum("nde,nd->ne", A, y)
+            for e in range(dim):
+                rhs[:, e] += phi1.T @ (w * Ay[:, e])
+                for f in range(dim):
+                    M[:, e, :, f] += (phi1 * (w * G[:, e, f])[:, None]).T \
+                        @ phi1
+        n = h1 * dim
+        evals, evecs = torch.linalg.eigh(M.reshape(n, n))
+        lmax = torch.clamp(evals[-1], min=1e-30)
+        inv = torch.where(evals > 1e-5 * lmax,
+                          1.0 / torch.maximum(evals, 1e-5 * lmax),
+                          torch.zeros_like(evals))
+        delta = (evecs @ (inv * (evecs.T @ rhs.reshape(n)))).reshape(h1, dim)
+        cand = params[:-1] + [(W + delta[:-1], b + delta[-1])]
+        kb = key.fold_in(fluid.max_n_iters + 1 + fluid.ls_head)
+        x, target, w = batch_fn.batch(kb)
+        better = bool(_batch_loss(batch_fn, cand, x, target, w, dim)
+                      <= _batch_loss(batch_fn, params, x, target, w, dim))
+    return cand if better else params
+
+
+class _PhaseBatches:
+    """The batch function of one phase fit: `batch(key)` -> (x, target,
+    w), plus the velocity, features and affine hard-BC map at fixed eps
+    and t."""
+
+    def __init__(self, fluid, eps, t):
+        self.fluid, self.eps, self.t = fluid, eps, t
+
+    def velocity(self, params, x):
+        return self.fluid.velocity(params, x, eps=self.eps, t=self.t)
+
+    def features(self, params, x):
+        return apply_siren_features(params, self.fluid.siren_cfg, x)
+
+    def affine(self, x):
+        return self.fluid.velocity_affine(x, eps=self.eps, t=self.t)
+
+    def points(self, kb):
+        f = self.fluid
+        pts, valid = sampling.training_points(
+            kb, f.n_batch, f.scene, f.scene.sample_pattern,
+            f.sample_resolution, device=f.device)
+        return pts, valid.to(torch.float32)
+
+
+class _SourceBatches(_PhaseBatches):
+    def batch(self, kb):
+        k1, k2 = kb.split(2)
+        pts, w = self.points(k1)
+        return pts, self.fluid.scene.source_velocity(pts, key=k2), w
+
+
+class _AdvectBatches(_PhaseBatches):
+    def __init__(self, fluid, prev, dt, eps, t):
+        super().__init__(fluid, eps, t)
+        self.prev, self.dt = prev, dt
+
+    def batch(self, kb):
+        f = self.fluid
+        pts, w = self.points(kb)
+        u_prev = self.velocity(self.prev, pts)
+        back = torch.clamp(pts - u_prev * self.dt, f._bbox_lo,
+                           f._bbox_hi)              # model_split.py:99-100
+        return pts, self.velocity(self.prev, back), w
+
+
+class _ProjectBatches(_PhaseBatches):
+    def __init__(self, fluid, prev, cloud, grad_p, eps, t):
+        super().__init__(fluid, eps, t)
+        self.prev, self.cloud, self.grad_p = prev, cloud, grad_p
+
+    def batch(self, kb):
+        f = self.fluid
+        idx = kb.randint((f.n_batch,), 0, self.cloud.shape[0], f.device)
+        pts = self.cloud[idx]
+        target = self.velocity(self.prev, pts) - self.grad_p[idx]
+        return pts, target, torch.ones(f.n_batch, device=f.device)
+
+
+def _fit_source(fluid, params0, key, eps, t):
+    """_add_source (base.py:313-335): fit u to the scene's initial field."""
+    with torch.no_grad():
+        return _fused_fit(fluid, params0, key, _SourceBatches(fluid, eps, t))
+
+
+def _fit_advect(fluid, params0, prev, dt, key, eps, t):
+    """_advect_velocity (model_split.py:87-120): semi-Lagrangian fit."""
+    with torch.no_grad():
+        return _fused_fit(fluid, params0, key,
+                          _AdvectBatches(fluid, prev, dt, eps, t))
+
+
+def _fit_project(fluid, params0, prev, pressure_pts, grad_p, key, eps, t):
+    """Projection fit (model_split.py:274-284): minibatch the fixed
+    pressure cloud, target u_prev - grad p."""
+    with torch.no_grad():
+        return _fused_fit(fluid, params0, key,
+                          _ProjectBatches(fluid, prev, pressure_pts, grad_p,
+                                          eps, t))
+
+
+# ----------------------------------------------------- projection stages
+
+_DIV_CHUNK = 1 << 18
+
+
+def _divergence_grid(fluid, prev, eps, t):
+    """-div u_prev on the cell-centered div_resolution^2 grid, by forward
+    mode (one jvp per axis) in chunks; the negation matches 'WoSt solves
+    lap u = -f' (model_split.py:233)."""
+    pts = sampling.uniform_grid(fluid.scene.scene_size, fluid.div_resolution,
+                                False, device=fluid.device)
+    flat = pts.reshape(-1, fluid.scene.dim)
+
+    def f(x):
+        return fluid.velocity(prev, x, eps=eps, t=t)
+
+    out = []
+    with torch.no_grad():
+        for x in flat.split(_DIV_CHUNK):
+            div = torch.zeros(x.shape[0], device=x.device)
+            for d in range(fluid.scene.dim):
+                tan = torch.zeros_like(x)
+                tan[:, d] = 1.0
+                _, du = torch.func.jvp(f, (x,), (tan,))
+                div = div + du[:, d]
+            out.append(-div)
+    return torch.cat(out).reshape(pts.shape[:-1])
+
+
+def _sample_pressure_cloud(fluid, key):
+    return sampling.fluid_points(key, fluid.wost_chunk, fluid.scene,
+                                 device=fluid.device)
+
+
+def _mask_pressure(fluid, pts, valid, p, grad_p):
+    """The reference's boundary masking (grid.h:155-237): p and grad p are
+    zeroed within boundary_distance_mask of the boundary; grad p also
+    outside the domain."""
+    scene = fluid.scene
+    dist = fluid.q.distance(fluid.boundary, pts)
+    signed = fluid.q.signed_distance(fluid.boundary, pts)
+    mask_near = torch.abs(dist) < scene.boundary_distance_mask
+    p = torch.where(mask_near, 0.0, p)
+    bad = mask_near | (signed >= 0.0) | ~valid
+    grad_p = torch.where(bad[:, None], 0.0, grad_p)
+    return p, grad_p
+
+
+def _pressure_solve(fluid, source_args, key):
+    """One chunk: pressure cloud + WoSt solution/gradient, masked."""
+    k1, k2 = key.split(2)
+    pts, valid = _sample_pressure_cloud(fluid, k1)
+    with torch.no_grad():
+        p, grad_p, _ = estimate_solution_and_gradient_gen(
+            fluid._wost_scene, fluid.walk_settings, pts, k2,
+            source_args=source_args)
+    return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)

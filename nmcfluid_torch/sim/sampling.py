@@ -1,0 +1,76 @@
+"""Training-point samplers (port of nmcfluid/sim/sampling.py).
+
+Grids use indexing='ij'. Only the scenes without obstacles are ported, so
+`fluid_points` is a plain uniform draw and every point is valid.
+"""
+import torch
+
+
+def grid_resolutions(scene_size, resolution):
+    """Aspect-scaled per-axis counts: the longest box edge gets
+    `resolution` cells (model_utils.py 2d:4-7)."""
+    dim = len(scene_size) // 2
+    ext = [scene_size[2 * i + 1] - scene_size[2 * i] for i in range(dim)]
+    m = max(ext)
+    return tuple(max(1, int(round(resolution * e / m))) for e in ext)
+
+
+def uniform_grid(scene_size, resolution, with_boundary=False, device="cpu"):
+    """Cell-centered uniform grid over the scene box; with_boundary appends
+    the box faces (model_utils.py 2d:9-20). Returns (res_x, res_y, dim)."""
+    dim = len(scene_size) // 2
+    res = grid_resolutions(scene_size, resolution)
+    axes = []
+    for i in range(dim):
+        lo, hi = scene_size[2 * i], scene_size[2 * i + 1]
+        a = (torch.arange(res[i], dtype=torch.float32, device=device)
+             + 0.5) / res[i]
+        if with_boundary:
+            z = torch.zeros(1, device=device)
+            a = torch.cat([z, a, z + 1.0])
+        axes.append(lo + a * (hi - lo))
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def random_points(key, n, scene_size, device="cpu"):
+    """Uniform random points in the scene box (model_utils.py 2d:22-31)."""
+    dim = len(scene_size) // 2
+    u = key.uniform((n, dim), device)
+    lo = torch.tensor([scene_size[2 * i] for i in range(dim)],
+                      dtype=torch.float32, device=device)
+    hi = torch.tensor([scene_size[2 * i + 1] for i in range(dim)],
+                      dtype=torch.float32, device=device)
+    return lo + u * (hi - lo)
+
+
+def training_points(key, n, scene, pattern="random", resolution=None,
+                    device="cpu"):
+    """sample_in_training's 'random' pattern (base.py:226-251). Returns
+    (pts, valid)."""
+    if pattern != "random":
+        raise NotImplementedError(
+            f"sample pattern {pattern!r}: only 'random' is ported")
+    return fluid_points(key, n, scene, device=device)
+
+
+def fluid_points(key, n, scene, device="cpu"):
+    """Random points in the fluid region, which is the whole box in the
+    ported scenes (no obstacles). Returns (pts (n, dim), valid)."""
+    return (random_points(key, n, scene.scene_size, device),
+            torch.ones(n, dtype=torch.bool, device=device))
+
+
+def nearest_lookup(grid, scene_size, y):
+    """Nearest-cell gather into a cell-centered grid over the scene box
+    (demo/image.h:53-58). grid: (res_x, res_y); y: (..., dim).
+    Out-of-box queries clamp. The cast truncates toward zero, as the JAX
+    package's astype(int32) does."""
+    dim = y.shape[-1]
+    res = grid.shape
+    flat = None
+    for i in range(dim):
+        lo, hi = scene_size[2 * i], scene_size[2 * i + 1]
+        u = (y[..., i] - lo) / (hi - lo) * res[i]
+        idx = torch.clamp(u.to(torch.int32), 0, res[i] - 1).to(torch.int64)
+        flat = idx if flat is None else flat * res[i] + idx
+    return grid.reshape(-1)[flat]

@@ -1,0 +1,154 @@
+"""The whole Taylor-Green slice: the port's add_source + step against the
+JAX package's, on the CPU, at tiny width.
+
+The port runs with the JAX-replay key seam, so it draws every random
+number the JAX package draws: initial weights, training points, pool
+batches, pressure clouds, walk streams and projection minibatches. The
+JAX side runs its fused fit (the Pallas kernel in interpret mode). Each
+phase fit's output is compared along the chained run, and the ls_head
+do-no-harm branch of every fit must be the same.
+
+The chained fits agree to the fit tolerance (atol 1e-3: Adam's first,
+sign-like steps turn last-ulp gradient differences into O(lr) parameter
+differences), and the divergence grid's seven sin(30 z) layers amplify
+that past 1e-4. So the divergence grid and the pressure solve are held
+to their tighter tolerances on the JAX run's own stage inputs: the
+params after its advection fit, and its divergence grid and chunk key.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import JaxKey, params_np, to_np
+
+import nmcfluid.sim.fluid as jfluid
+import nmcfluid_torch.sim.fluid as tfluid
+from nmcfluid.scenes import get_scene as j_get_scene
+from nmcfluid_torch.scenes import get_scene as t_get_scene
+
+TINY = dict(sample_resolution=8, wost_resolution=16, div_resolution=16,
+            n_walks=48, max_n_iters=20, fit_pool=4)
+
+
+def _record(monkeypatch, module, log, jax_side):
+    """Log each phase fit's output params and its ls_head branch (True
+    when the solved head replaced the Adam endpoint)."""
+    fits = {name: getattr(module, name)
+            for name in ("_fit_source", "_fit_advect", "_fit_project")}
+    for name, fn in fits.items():
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            params, stats = _fn(*a, **kw)
+            log["fits"].append((_name, params_np(params)))
+            return params, stats
+        monkeypatch.setattr(module, name, wrapped)
+    solve = module._ls_head_solve
+
+    def ls_wrapped(fluid, params, key, batch_fn):
+        out = solve(fluid, params, key, batch_fn)
+        if jax_side:
+            moved = jnp.any(out[-1][0] != params[-1][0])
+            jax.debug.callback(lambda m: log["branch"].append(bool(m)),
+                               moved)
+        else:
+            log["branch"].append(out[-1][0] is not params[-1][0])
+        return out
+    monkeypatch.setattr(module, "_ls_head_solve", ls_wrapped)
+    if jax_side:
+        solve_p = module._pressure_solve
+
+        def p_wrapped(fluid, wsc, source_args, key):
+            out = solve_p(fluid, wsc, source_args, key)
+            log["pressure"].append((np.asarray(source_args[0]), key,
+                                    [np.asarray(a) for a in out]))
+            return out
+        monkeypatch.setattr(module, "_pressure_solve", p_wrapped)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    mp = pytest.MonkeyPatch()
+    logs = {"jax": {"fits": [], "branch": [], "pressure": []},
+            "torch": {"fits": [], "branch": []}}
+    try:
+        _record(mp, jfluid, logs["jax"], True)
+        _record(mp, tfluid, logs["torch"], False)
+        jf = jfluid.NeuralFluid(j_get_scene("taylorgreen"), fit_mode="fused",
+                                **TINY)
+        js = jf.add_source(jf.init_state(0))
+        js = jf.step(js)
+        jax.effects_barrier()
+        tf = tfluid.NeuralFluid(t_get_scene("taylorgreen"), device="cpu",
+                                **TINY)
+        ts = tf.add_source(tf.init_state(key=JaxKey.from_seed(0)))
+        ts = tf.step(ts)
+    finally:
+        mp.undo()
+    return jf, js, tf, ts, logs
+
+
+def test_each_fit_matches(runs):
+    """Params after the source, advection and projection fits: rtol 2e-4
+    / atol 1e-3, the TG-family fit tolerance (tests/test_fitkernel.py)."""
+    *_, logs = runs
+    names = [n for n, _ in logs["jax"]["fits"]]
+    assert names == ["_fit_source", "_fit_advect", "_fit_project"]
+    assert names == [n for n, _ in logs["torch"]["fits"]]
+    for (_, pj), (_, pt) in zip(logs["jax"]["fits"], logs["torch"]["fits"]):
+        for a, b in zip(pt, pj):
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-3)
+
+
+def test_ls_head_branch_is_equal(runs):
+    *_, logs = runs
+    assert len(logs["jax"]["branch"]) == 3
+    assert logs["torch"]["branch"] == logs["jax"]["branch"]
+
+
+def test_divergence_grid_matches(runs):
+    """On the params the JAX run projected (its advection fit's output):
+    rtol 1e-4 / atol 5e-5. Both sides take an f32 forward-mode Jacobian
+    through seven sin(30 z) layers, with partials up to ~1.8. Against a
+    float64 evaluation of the same grid, the JAX package's f32 grid is
+    off by up to 3.4e-5 and the port's by up to 1.6e-5, so an atol of
+    1e-5 between the two would measure f32 rounding, not the port."""
+    jf, js, tf, ts, logs = runs
+    prev = [tuple(torch.tensor(a) for a in pair) for pair in zip(
+        *[iter(logs["jax"]["fits"][1][1])] * 2)]
+    got = tfluid._divergence_grid(tf, prev, ts.eps, 1)
+    np.testing.assert_allclose(to_np(got), np.asarray(jf._last_projection[3]),
+                               rtol=1e-4, atol=5e-5)
+
+
+def test_pressure_matches(runs):
+    """One chunk on the JAX run's divergence grid and chunk key: the same
+    pressure cloud (to an ulp: XLA may fuse lo + u (hi - lo) into an FMA),
+    and p / grad p at the gen-vs-pool tolerances of tests/test_gen.py."""
+    jf, js, tf, ts, logs = runs
+    assert len(logs["jax"]["pressure"]) == 1
+    grid, key, (pts_j, valid_j, p_j, g_j) = logs["jax"]["pressure"][0]
+    pts_t, valid_t, p_t, g_t = tfluid._pressure_solve(
+        tf, (torch.from_numpy(grid),), JaxKey(key))
+    np.testing.assert_allclose(to_np(pts_t), pts_j, rtol=2e-7, atol=0)
+    np.testing.assert_array_equal(to_np(valid_t), valid_j)
+    np.testing.assert_allclose(to_np(p_t), p_j, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(to_np(g_t), g_j, rtol=2e-3, atol=2e-4)
+
+
+def test_final_state(runs):
+    jf, js, tf, ts, _ = runs
+    assert ts.timestep == int(js.timestep) == 1
+    assert np.isfinite(float(ts.P))
+    for a, b in zip(params_np(ts.params), params_np(js.params)):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("over", [dict(adv_ref=True),
+                                  dict(projection="bem"),
+                                  dict(fit_mode="xla"),
+                                  dict(grad_clip=1.0),
+                                  dict(param_ema=0.99)])
+def test_unported_flags_raise(over):
+    with pytest.raises(NotImplementedError):
+        tfluid.NeuralFluid(t_get_scene("taylorgreen"), device="cpu", **over)

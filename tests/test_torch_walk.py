@@ -1,0 +1,115 @@
+"""The port's generation executor against the JAX package's, on the CPU.
+
+Both walk the same streams: the start draws are keyed on (pair, point)
+and the continuation draws on (lane step, pair * N + point) through
+fastrand, and `rot` comes from the same key through the JAX-replay key
+seam. So the two agree to floating-point reduction order, at the
+tolerances of tests/test_gen.py (gen vs pool).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import JaxKey, to_np
+
+from nmcfluid.geometry.analytic2d import make_analytic2d as j_box
+from nmcfluid.sim import sampling as j_sampling
+from nmcfluid.wost import WalkSettings as JSettings, WostScene as JScene
+from nmcfluid.wost.gen import estimate_solution_and_gradient_gen as j_gen
+
+from nmcfluid_torch.geometry.analytic2d import make_analytic2d as t_box
+from nmcfluid_torch.sim import sampling as t_sampling
+from nmcfluid_torch.utils.keys import Key
+from nmcfluid_torch.wost.gen import estimate_solution_and_gradient_gen \
+    as t_gen
+from nmcfluid_torch.wost.solver import (WalkSettings as TSettings,
+                                        WostScene as TScene)
+
+L = 2.0
+SIG = 30.0
+KX = math.pi / L
+TG_LO, TG_HI = 0.000447, 6.279553
+PTS = np.asarray([[1.0, 1.0], [0.4, 0.7], [1.5, 1.6], [0.2, 1.1]],
+                 np.float32)
+
+
+def _manufactured(lib):
+    """(Lap - SIG) p = -f with p* = cos(KX x) cos(KX y) on [0, L]^2,
+    zero-flux walls: the estimator suite's analytic problem."""
+    if lib == "jax":
+        src = lambda x: (SIG + 2.0 * KX ** 2) * jnp.cos(KX * x[..., 0]) \
+            * jnp.cos(KX * x[..., 1])
+        return JScene(dim=2, neumann=j_box((0.0, 0.0), (L, L)),
+                      source_fn=src, absorption=SIG)
+    src = lambda x: (SIG + 2.0 * KX ** 2) * torch.cos(KX * x[..., 0]) \
+        * torch.cos(KX * x[..., 1])
+    return TScene(dim=2, neumann=t_box((0.0, 0.0), (L, L)), source_fn=src,
+                  absorption=SIG)
+
+
+def _tg_grid(lib, grid):
+    """The fluid's own walk: TG box, sigma = 350, nearest-texel source
+    from a divergence grid passed as source_args."""
+    ss = (TG_LO, TG_HI, TG_LO, TG_HI)
+    if lib == "jax":
+        return JScene(dim=2, neumann=j_box((TG_LO, TG_LO), (TG_HI, TG_HI)),
+                      source_fn=lambda y, g: j_sampling.nearest_lookup(
+                          g, ss, y), absorption=350.0), (jnp.asarray(grid),)
+    return TScene(dim=2, neumann=t_box((TG_LO, TG_LO), (TG_HI, TG_HI)),
+                  source_fn=lambda y, g: t_sampling.nearest_lookup(g, ss, y),
+                  absorption=350.0), (torch.from_numpy(grid),)
+
+
+@pytest.mark.parametrize("case", ["manufactured", "tg_grid"])
+def test_gen_matches_jax_gen(case):
+    """n_walks = 48 > 2 * cv_warmup_pairs, so the frozen control variates
+    engage. Same walk set => identical valid counts; p and grad at the
+    gen-vs-pool tolerances of tests/test_gen.py."""
+    rng = np.random.default_rng(0)
+    if case == "manufactured":
+        pts = PTS
+        (js, jargs), (ts, targs) = (_manufactured("jax"), ()), \
+            (_manufactured("torch"), ())
+    else:
+        pts = rng.uniform(TG_LO, TG_HI, (64, 2)).astype(np.float32)
+        pts[:4] = [[TG_LO + 1e-4, 3.0], [3.0, TG_HI - 5e-4], [0.01, 0.02],
+                   [6.2, 6.2]]                  # near walls and corners
+        grid = rng.normal(size=(24, 24)).astype(np.float32)
+        js, jargs = _tg_grid("jax", grid)
+        ts, targs = _tg_grid("torch", grid)
+    key = jax.random.PRNGKey(3)
+    p_j, g_j, n_j = j_gen(js, JSettings(algo="gen"), jnp.asarray(pts), key,
+                          48, source_args=jargs)
+    p_t, g_t, n_t = t_gen(ts, TSettings(algo="gen"), torch.from_numpy(pts),
+                          JaxKey(key), 48, source_args=targs)
+    np.testing.assert_array_equal(to_np(n_t), np.asarray(n_j))
+    np.testing.assert_allclose(to_np(p_t), np.asarray(p_j), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(to_np(g_t), np.asarray(g_j), rtol=2e-3,
+                               atol=2e-4)
+
+
+def test_gen_solves_manufactured_problem():
+    """The port alone, with its own key: the analytic solution and its
+    gradient at the tolerances of tests/test_gen.py:63-75."""
+    p, grad, n = t_gen(_manufactured("torch"), TSettings(algo="gen"),
+                       torch.from_numpy(PTS), Key(0), 2000)
+    pstar = np.cos(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1])
+    np.testing.assert_allclose(to_np(p), pstar, atol=0.05)
+    gx = -KX * np.sin(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1])
+    gy = -KX * np.cos(KX * PTS[:, 0]) * np.sin(KX * PTS[:, 1])
+    np.testing.assert_allclose(to_np(grad), np.stack([gx, gy], -1),
+                               atol=0.15)
+    assert np.all(to_np(n) > 1700)
+
+
+def test_gen_unported_settings_raise():
+    scene = _manufactured("torch")
+    for over in (dict(algo="pool"), dict(steps_before_tikhonov=2),
+                 dict(solve_double_sided=True), dict(adaptive_walks=1.0)):
+        with pytest.raises(NotImplementedError):
+            t_gen(scene, TSettings(**over), torch.from_numpy(PTS), Key(0), 8)
