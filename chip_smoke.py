@@ -3,26 +3,40 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the port's CUDA kernels from nmcfluid_torch/csrc/ (nvcc, sm_90a).
-3. Holds the fused phase-fit kernel against its plain PyTorch twin on the
+2. Builds the port's CUDA kernels from nmcfluid_torch/csrc/ (one nvcc per
+   source, all started together, for sm_90a) and prints each build time.
+3. Drives the gather probe's entry point, nmcfluid_torch.wost.
+   pallas_probe.main, at n = 65,536 (the probe's) and 524,288 (a walk
+   generation's lanes), on a random table and on the radial table with
+   the rows the walk's radius draw picks: each of the four kernels of
+   csrc/gather.cu and each PyTorch baseline held exactly equal to
+   table[idx] and timed; checks that each kernel launched.
+4. Holds the fused phase-fit kernel against its plain PyTorch twin on the
    card at Taylor-Green shapes (6 x 64 SIREN, 4096-point batches, K = 8),
    and times both per fit iteration.
-4. Holds the divergence grid and one walk-on-stars chunk on the card
+5. Holds the divergence grid and one walk-on-stars chunk on the card
    against the same stages on the CPU, on a small input.
-5. Drives the main path at the shipped Taylor-Green width and depth:
+6. Drives the main path at the shipped Taylor-Green width and depth:
    get_scene, NeuralFluid(device="cuda"), init_state, add_source and two
    steps, with the per-stage wall-clock and the Taylor-Green velocity
    error of each step, and checks that every phase fit ran on the kernel.
 
-Any failed check raises, so the script exits non-zero. The last two lines
-are the kernel report and {"ok": true, "device": {...}}.
+Any failed check raises, so the script exits non-zero. The last three
+lines are the kernel report ({"kernels": [...]}, one entry per kernel with
+its launches, error, times and bound), the card's name and power limit as
+nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+GATHER_N = (65536, 524288)     # the probe's n; a walk generation's lanes
 
 
 def _card_line():
@@ -111,6 +125,63 @@ def check_small_input(tfluid, scene, Key):
           "the CPU", flush=True)
 
 
+def _bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time of the card's memory rate and
+    f32 rate for this work, at the published peaks (700 W)."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def _fit_bound(cfg, B):
+    """Least time of one Adam iteration at batch B: forward MACs of the
+    SIREN, backward twice that; bytes of one pool batch and of the params,
+    m and v read and written once."""
+    H, Lh, D_in, D_out = (cfg.hidden_features, cfg.num_hidden_layers,
+                          cfg.in_features, cfg.out_features)
+    macs = D_in * H + Lh * H * H + H * D_out
+    n_params = macs + (Lh + 1) * H + D_out
+    n_bytes = 4 * (B * (D_in + D_out * D_out + 3 * D_out + 1)
+                   + 6 * n_params)
+    return _bound(n_bytes, 2 * 3 * macs * B)
+
+
+def _gather_bound(idx):
+    """All four forms compute out[b] = table[idx[b]], so one bound: indices
+    read and rows written once, and the table rows this run's indices
+    touch. (onehot's own 128 x 4 FMAs a lane are its form's cost, not the
+    function's.)"""
+    return _bound(20 * idx.shape[0] + 16 * torch.unique(idx).numel(), 0)
+
+
+def gather_report(pp, probe, launches):
+    """Kernel-report entries of the four gathers at n = GATHER_N[-1] on the
+    random table, all from the probe's runs: the kernel's time, its plain
+    version's, torch.index_select's, the largest error over every run, and
+    the bound from the run's indices."""
+    n = GATHER_N[-1]
+    res = probe[("random", n)]
+    _, idx = pp.probe_inputs("random", n, "cuda")
+    bound_ms, bound_by = _gather_bound(idx)
+    lines = {"rows": 38, "lanes": 44, "scalar": 52, "onehot": 59}
+    out = []
+    for variant in pp.VARIANTS:
+        out.append({
+            "name": f"gather_{variant}_k", "route": "cuda",
+            "source": "nmcfluid_torch/csrc/gather.cu",
+            "replaces": f"nmcfluid/wost/pallas_probe.py:{lines[variant]}",
+            "launches": launches[variant],
+            "max_abs_err": max(r[variant]["err"] for r in probe.values()),
+            "ms": res[variant]["ms"],
+            "plain_ms": res[pp.PLAIN[variant]]["ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": res["torch"]["ms"], "n": n})
+        print(f"gather {variant}: {out[-1]['ms']:.5f} ms kernel, "
+              f"{out[-1]['plain_ms']:.5f} ms plain, "
+              f"{out[-1]['library_ms']:.5f} ms torch.index_select, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) at n = {n}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -124,14 +195,41 @@ def main():
                                                   tg_velocity_error)
     from nmcfluid_torch.utils import cuda_build
     from nmcfluid_torch.utils.keys import Key
+    from nmcfluid_torch.wost import pallas_probe as pp
 
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    so = cuda_build.library_path("fitkernel", fk._SOURCES)
+
+    def build(name, sources):
+        t0 = time.perf_counter()
+        so = cuda_build.library_path(name, sources)
+        return so, time.perf_counter() - t0
+    with ThreadPoolExecutor() as ex:
+        builds = [ex.submit(build, "fitkernel", fk._SOURCES),
+                  ex.submit(build, "gather", pp._SOURCES)]
+        for b in builds:
+            so, dt = b.result()
+            print(f"built {so} in {dt:.1f} s", flush=True)
     fk.load_library()
-    print(f"built {so} in {time.perf_counter() - t0:.1f} s", flush=True)
+    pp.load_library()
+
+    # ---- the gather probe's entry point at the probe's n and a
+    # generation's lanes, on a random table and on the radial table with
+    # the walk's rows: every form held exactly against table[idx]
+    pp.launches.update(dict.fromkeys(pp.VARIANTS, 0))
+    fk.launches = 0
+    probe = {(kind, n): pp.main(["--table", kind, "--n", str(n)])
+             for kind in ("random", "radial") for n in GATHER_N}
+    gather_launches = dict(pp.launches)
+    for key, res in probe.items():
+        if not all(r["ok"] for r in res.values()):
+            raise AssertionError(f"probe {key}: {res}")
+    if not all(gather_launches.values()) or fk.launches:
+        raise AssertionError(f"probe launches {gather_launches}, fit "
+                             f"{fk.launches}")
+    gather_entries = gather_report(pp, probe, gather_launches)
+    torch.cuda.empty_cache()
 
     scene = get_scene("taylorgreen")
     fluid = tfluid.NeuralFluid(scene, device="cuda")
@@ -150,6 +248,7 @@ def main():
 
     # ---- the main path at full width
     fk.launches = 0
+    pp.launches.update(dict.fromkeys(pp.VARIANTS, 0))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = fluid.init_state(0)
@@ -186,12 +285,15 @@ def main():
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
+    bound_ms, bound_by = _fit_bound(fluid.siren_cfg, fluid.n_batch)
     print(json.dumps({"kernels": [{
         "name": "fused_adam_fit (fit_fwd_bwd + fit_adam)", "route": "cuda",
         "source": "nmcfluid_torch/csrc/fitkernel.cu",
         "replaces": "nmcfluid/sim/fitkernel.py:317",
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        # no single PyTorch call computes an Adam iteration of a SIREN
+        "library_ms": None}] + gather_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ Slice 1 covers the Taylor-Green frame: SIREN velocity field, fused Adam
 phase fits (a hand-written CUDA kernel on the GPU, its plain PyTorch twin
 on the CPU), the divergence grid, and the walk-on-stars pressure solve
 with the generation executor. Branches outside that slice raise
-NotImplementedError naming the scene or flag.
+NotImplementedError naming the scene or flag. `wost/pallas_probe.py`
+measures the walk's table gather in the four forms the TPU tried, each a
+hand-written CUDA kernel.
 
 Precision: the SIREN's sin(30 z) layers amplify matmul rounding, and plain
 bf16 matmuls failed the Taylor-Green error gate in the JAX package, so the
@@ -22,7 +24,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def get_device(device=None) -> torch.device:
-    """`device` as a torch.device; None picks the GPU when one is present."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """`device` as a torch.device; None means the GPU. Asking for the GPU
+    where there is none raises: the CPU runs only when asked for by
+    device="cpu", never in its place."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to run on the '
+                           "CPU")
+    return dev

@@ -57,7 +57,8 @@ class NeuralFluid:
 
     Takes the JAX package's constructor arguments; those outside the
     Taylor-Green slice raise NotImplementedError when set. `device` is
-    where every tensor is created (None: the GPU when one is present)."""
+    where every tensor is created: None means the GPU, and raises
+    RuntimeError without one; device="cpu" asks for the CPU."""
 
     def __init__(self, scene, *, max_n_iters: Optional[int] = None,
                  sample_resolution: Optional[int] = None,

@@ -1,21 +1,27 @@
-"""Card-only tests of the port's CUDA fit kernel (marker `gpu`).
+"""Card-only tests of the port's CUDA kernels (marker `gpu`).
 
-The CUDA kernel has no CPU mode, so these skip without a card. They import
-neither JAX nor the parity helpers, so they also run on a machine that has
-a card and no JAX; the suite's conftest.py configures JAX, so leave it out:
+The CUDA kernels have no CPU mode, so these skip without a card. They
+import neither JAX nor the parity helpers, so they also run on a machine
+that has a card and no JAX; the suite's conftest.py configures JAX, so
+leave it out:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Each test holds the kernel against the plain twin `reference_adam_fit` on
-the same card, with a pool made from a numpy seed.
+Each test holds a kernel against its plain version on the same card (the
+fit against `reference_adam_fit`, the gathers against
+`reference_gather_rows`), with inputs made from a numpy seed.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from nmcfluid_torch.models.siren import SirenConfig, init_siren
+from nmcfluid_torch.ops import radial_tables as rt
 from nmcfluid_torch.sim import fitkernel as fk
 from nmcfluid_torch.utils.keys import Key
+from nmcfluid_torch.wost import pallas_probe as pp
 
 pytestmark = pytest.mark.gpu
 
@@ -23,7 +29,8 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fit kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -99,3 +106,50 @@ def test_launch_counter_and_no_fallback(cuda):
         with pytest.raises(ValueError):
             fk.fused_adam_fit(p, cfg, pl, 3, 1e-3)
     assert fk.launches == before + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _radial_table():
+    return rt.pack_quads(rt.build_table(2)).reshape(-1, 4).astype(np.float32)
+
+
+def _gather_inputs(dev, kind, n=65536, seed=0):
+    """The (32512, 4) radial table or a random normal one, and n random
+    int32 rows."""
+    rng = np.random.default_rng(seed)
+    table = _radial_table() if kind == "radial" else \
+        rng.standard_normal(pp.ONEHOT_TABLE).astype(np.float32)
+    idx = rng.integers(0, table.shape[0], n).astype(np.int32)
+    return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.parametrize("variant", pp.VARIANTS)
+def test_gather_kernel_equals_plain_on_card(cuda, variant):
+    """Exact equality at the probe's n = 65,536 on both tables (a gather
+    moves values unchanged; onehot's sums have one nonzero term), one
+    launch counted per call, and inputs the kernel does not take raise
+    ValueError on the card with no launch counted."""
+    for kind in ("random", "radial"):
+        table, idx = _gather_inputs(cuda, kind)
+        before = pp.launches[variant]
+        got = pp.gather_rows(table, idx, variant)
+        torch.cuda.synchronize()
+        assert pp.launches[variant] == before + 1
+        assert torch.equal(got, pp.reference_gather_rows(table, idx,
+                                                         variant))
+    past_end = idx.clone()
+    past_end[7] = table.shape[0]
+    misaligned = torch.empty(table.numel() + 1, device=cuda)[1:].view(-1, 4)
+    misaligned.copy_(table)
+    bad = [(table, idx[:1000]), (table.double(), idx), (table, idx.long()),
+           (table.cpu(), idx), (table, idx.cpu()), (table, past_end),
+           (table, -idx - 1)]
+    if variant in ("rows", "scalar"):
+        bad.append((misaligned, idx))
+    if variant == "onehot":
+        bad.append((table[:1024].contiguous(), idx % 1024))
+    before = pp.launches[variant]
+    for t, i in bad:
+        with pytest.raises(ValueError):
+            pp.gather_rows(t, i, variant)
+    assert pp.launches[variant] == before
