@@ -4,22 +4,25 @@
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the port's CUDA kernels from nmcfluid_torch/csrc/ (one nvcc per
-   source, all started together, for sm_90a) and prints each build time.
+   source, all started together, for sm_90a), prints each build time and
+   each fit kernel's registers, stack and spills (ptxas -v).
 3. Drives the gather probe's entry point, nmcfluid_torch.wost.
    pallas_probe.main, at n = 65,536 (the probe's) and 524,288 (a walk
    generation's lanes), on a random table and on the radial table with
    the rows the walk's radius draw picks: each of the four kernels of
    csrc/gather.cu and each PyTorch baseline held exactly equal to
    table[idx] and timed; checks that each kernel launched.
-4. Holds the fused phase-fit kernel against its plain PyTorch twin on the
-   card at Taylor-Green shapes (6 x 64 SIREN, 4096-point batches, K = 8),
-   and times both per fit iteration.
+4. Holds the persistent phase-fit kernel against its plain PyTorch twin on
+   the card at Taylor-Green shapes (6 x 64 SIREN, 4096-point batches,
+   K = 8), checks that two calls agree bit for bit, and times it as the
+   main path runs it: one 10,000-iteration fit on a K = 512 pool.
 5. Holds the divergence grid and one walk-on-stars chunk on the card
    against the same stages on the CPU, on a small input.
 6. Drives the main path at the shipped Taylor-Green width and depth:
    get_scene, NeuralFluid(device="cuda"), init_state, add_source and two
-   steps, with the per-stage wall-clock and the Taylor-Green velocity
-   error of each step, and checks that every phase fit ran on the kernel.
+   steps, with the per-stage wall-clock (and the fit kernel's own device
+   time, "fit_kernel") and the Taylor-Green velocity error of each step,
+   and checks that every phase fit ran on the kernel, one launch a fit.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
@@ -27,6 +30,7 @@ its launches, error, times and bound), the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}.
 """
 import json
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -36,6 +40,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 tensor cores, dense
 GATHER_N = (65536, 524288)     # the probe's n; a walk generation's lanes
 
 
@@ -67,40 +72,86 @@ def _tg_pool(fluid, K, seed):
             torch.ones((K, B), device="cuda"))
 
 
-def check_fit_kernel(fluid, fk, params):
+def check_fit_kernel(fluid, fk, tfluid, params):
     """Kernel vs plain twin, 25 iterations at lr 1e-3: params to rtol 2e-4
     / atol 1e-3 and loss to rtol 1e-2 (tests/test_fitkernel.py's TG-family
-    tolerances). Returns (max_abs_err, kernel ms/iter, twin ms/iter)."""
+    tolerances); a second call must agree bit for bit. Then the kernel as
+    the main path runs it: a 10,000-iteration fit on a K = 512 pool with
+    the main path's lr. Returns (max_abs_err, kernel ms/iter, twin
+    ms/iter)."""
     pool = _tg_pool(fluid, 8, seed=0)
     cfg = fluid.siren_cfg
     p_k, l_k = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
+    p_k2, l_k2 = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
     _sync()
     t0 = time.perf_counter()
     p_r, l_r = fk.reference_adam_fit(params, cfg, pool, 25, 1e-3)
     _sync()
     plain_ms = (time.perf_counter() - t0) * 1e3 / 25
     err = 0.0
-    for (a, b), (c, d) in zip(p_k, p_r):
-        for u, v in ((a, c), (b, d)):
+    for (a, b), (c, d), (e, f) in zip(p_k, p_r, p_k2):
+        for u, v, w in ((a, c, e), (b, d, f)):
             torch.testing.assert_close(u, v, rtol=2e-4, atol=1e-3)
             err = max(err, float((u - v).abs().max()))
+            if not torch.equal(u, w):
+                raise AssertionError("two fit-kernel calls differ")
+    if not torch.equal(l_k, l_k2):
+        raise AssertionError("two fit-kernel calls give other losses")
     rel = abs(float(l_k) - float(l_r)) / abs(float(l_r))
     if not rel <= 1e-2:
         raise AssertionError(f"fit loss: kernel {float(l_k)} vs twin "
                              f"{float(l_r)}")
-    # time the kernel at TG shapes over a longer fit (events on the stream)
-    fk.fused_adam_fit(params, cfg, pool, 20, 1e-5)
-    n = 1000
+    # the main path's fit: K = 512 pool, max_n_iters iterations, its lr
+    pool = _tg_pool(fluid, fluid.fit_pool, seed=1)
+    lr = tfluid._fit_lr_array(fluid)
+    n = fluid.max_n_iters
+    fk.fused_adam_fit(params, cfg, pool, 20, lr)
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ev0.record()
-    fk.fused_adam_fit(params, cfg, pool, n, 1e-5)
+    fk.fused_adam_fit(params, cfg, pool, n, lr)
     ev1.record()
     _sync()
     kernel_ms = ev0.elapsed_time(ev1) / n
     print(f"fit kernel vs twin: max_abs_err {err:.3e}, loss {float(l_k):.6e}"
-          f" vs {float(l_r):.6e}; ms/iter kernel {kernel_ms:.4f}, "
-          f"twin {plain_ms:.4f}", flush=True)
+          f" vs {float(l_r):.6e}, repeat bit-identical; ms/iter kernel "
+          f"{kernel_ms:.5f} ({n} iterations, K = {fluid.fit_pool}), twin "
+          f"{plain_ms:.4f}", flush=True)
     return err, kernel_ms, plain_ms
+
+
+def fit_build_report(log, plan, threads):
+    """Each fit kernel's registers, stack and spills from ptxas -v, and the
+    dynamic shared memory the plan gives it at Taylor-Green shapes."""
+    kernels, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*fit_persistentILi(\d)"
+                      r"ELb([01])E\S*)'", line)
+        if m:
+            cur = {"npw": int(m.group(2)), "recompute": m.group(3) == "1"}
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    if not kernels:
+        raise AssertionError("no fit kernel in the ptxas report")
+    for k in sorted(kernels, key=lambda k: (k["recompute"], k["npw"])):
+        print(f"fit_persistent<H padded to {32 * k['npw']}, "
+              f"{'recompute' if k['recompute'] else 'store'}>: "
+              f"{k.get('registers')} registers, {k.get('stack')} B stack, "
+              f"{k.get('spill_stores')} B spill stores, "
+              f"{k.get('spill_loads')} B spill loads", flush=True)
+    print(f"fit kernel at Taylor-Green shapes: {plan.G} blocks x "
+          f"{threads} threads, {plan.smem_bytes} B dynamic shared memory a "
+          f"block", flush=True)
+    return kernels
 
 
 def check_small_input(tfluid, scene, Key):
@@ -135,14 +186,18 @@ def _bound(n_bytes, flops):
 def _fit_bound(cfg, B):
     """Least time of one Adam iteration at batch B: forward MACs of the
     SIREN, backward twice that; bytes of one pool batch and of the params,
-    m and v read and written once."""
+    m and v read and written once. Returns (bound_ms, bound_by) at the f32
+    rate and the 3xTF32 bound: three TF32 products for each f32 one on
+    the tensor cores."""
     H, Lh, D_in, D_out = (cfg.hidden_features, cfg.num_hidden_layers,
                           cfg.in_features, cfg.out_features)
     macs = D_in * H + Lh * H * H + H * D_out
     n_params = macs + (Lh + 1) * H + D_out
     n_bytes = 4 * (B * (D_in + D_out * D_out + 3 * D_out + 1)
                    + 6 * n_params)
-    return _bound(n_bytes, 2 * 3 * macs * B)
+    flops = 2 * 3 * macs * B
+    return _bound(n_bytes, flops) + (
+        max(n_bytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3,)
 
 
 def _gather_bound(idx):
@@ -233,8 +288,15 @@ def main():
 
     scene = get_scene("taylorgreen")
     fluid = tfluid.NeuralFluid(scene, device="cuda")
+    cfg = fluid.siren_cfg
+    plan = fk.fit_plan(cfg.in_features, cfg.out_features,
+                       cfg.hidden_features, cfg.num_hidden_layers,
+                       fluid.n_batch, fluid.fit_pool, fluid.max_n_iters,
+                       fk._sm_count(torch.device("cuda")))
+    fit_build_report(cuda_build.build_log("fitkernel", fk._SOURCES), plan,
+                     fk._NT)
     err, kernel_ms, plain_ms = check_fit_kernel(
-        fluid, fk, fluid.init_state(1).params)
+        fluid, fk, tfluid, fluid.init_state(1).params)
     check_small_input(tfluid, scene, Key)
 
     def tg_error(params):
@@ -258,20 +320,25 @@ def main():
     print(f"add_source: {wall:.2f} s, TG velocity error "
           f"{tg_error(state.params):.6e}", flush=True)
     fluid.profile = True
+    per_frame = []
     for s in range(2):
         fluid.stage_times = {}
+        before = fk.launches
         t0 = time.perf_counter()
         state = fluid.step(state)
         _sync()
         wall = time.perf_counter() - t0
+        per_frame.append(fk.launches - before)
         stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
         print(f"step {s + 1}: {wall:.2f} s, stages {json.dumps(stages)}, "
-              f"P {float(state.P):.6e}, TG velocity error "
+              f"fit-kernel launches {per_frame[-1]}, P "
+              f"{float(state.P):.6e}, TG velocity error "
               f"{tg_error(state.params):.6e}", flush=True)
     launches = fk.launches
-    if launches != 5:
+    if launches != 5 or per_frame != [2, 2]:
         raise AssertionError(f"expected 5 fit-kernel launches (1 source + "
-                             f"2 per step), got {launches}")
+                             f"2 per step), got {launches} ({per_frame} "
+                             f"in the steps)")
     pts, p, grad_p, div = fluid._last_projection
     for name, t in [("P", state.P), ("p", p), ("grad_p", grad_p),
                     ("div_grid", div)] + [
@@ -285,13 +352,20 @@ def main():
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
 
-    bound_ms, bound_by = _fit_bound(fluid.siren_cfg, fluid.n_batch)
+    bound_ms, bound_by, bound_tc_ms = _fit_bound(cfg, fluid.n_batch)
+    print(f"fit kernel: {kernel_ms:.5f} ms/iter, {bound_ms / kernel_ms:.1%} "
+          f"of the f32 bound ({bound_ms:.5f} ms), "
+          f"{bound_tc_ms / kernel_ms:.1%} of the 3xTF32 bound "
+          f"({bound_tc_ms:.5f} ms); {per_frame[0]} launches a TG frame",
+          flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_adam_fit (fit_fwd_bwd + fit_adam)", "route": "cuda",
+        "name": "fit_persistent (fused_adam_fit)", "route": "cuda",
         "source": "nmcfluid_torch/csrc/fitkernel.cu",
         "replaces": "nmcfluid/sim/fitkernel.py:317",
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+        "launches": launches, "launches_per_tg_frame": per_frame[0],
+        "max_abs_err": err, "ms": kernel_ms, "ms_per": "Adam iteration",
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_3xtf32_ms": bound_tc_ms,
         # no single PyTorch call computes an Adam iteration of a SIREN
         "library_ms": None}] + gather_entries}))
     print(card)

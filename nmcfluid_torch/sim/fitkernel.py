@@ -15,6 +15,7 @@ the optax Adam formula written out by hand (torch.optim.Adam places eps
 differently in floating point).
 """
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,12 +28,129 @@ ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
 
 _SOURCES = ("fitkernel.cu",)
-_NT, _MAXR = 256, 8            # threads per block, outputs per thread (.cu)
+_NT = 256                      # threads per block (.cu)
+_T = 32                        # points per tile (.cu)
 _SMEM_LIMIT = 227 * 1024       # H100 shared memory a block can use
+_CHUNK_MAX = 1024              # Adam slice a block aims for; columns a pass
+_COOP_TOO_LARGE = 720          # cudaErrorCooperativeLaunchTooLarge
 
-# launches of the CUDA fit (one per fused_adam_fit call on a CUDA tensor;
-# each runs 2 * n_iters kernels)
+# launches of the CUDA fit: one persistent kernel per fused_adam_fit call
+# on a CUDA tensor, counted when the launch was accepted
 launches = 0
+
+# the order of the int64 plan array that fit_run reads (.cu: PlanField)
+_PLAN_FIELDS = ("D_in", "D_out", "H", "Lh", "B", "K", "n_iters", "Hp",
+                "n_params", "n_tiles", "tiles_per_block", "n_work", "G",
+                "chunk", "pass_cols", "n_wbuf", "recompute",
+                "moments_global", "ld_part", "row_groups", "smem_bytes")
+# phases timed by thread 0 of block 0 when asked (.cu: Phase)
+PHASES = ("first", "fwd_prod", "fwd_epi", "head", "bwd_wgrad", "bwd_igrad",
+          "bwd_first", "wait_d", "adam", "wait_f")
+
+
+class FitPlan(NamedTuple):
+    """Launch plan of the persistent fit kernel (csrc/fitkernel.cu).
+
+    The fit runs as G blocks of _NT threads, all resident at once. Tile t
+    holds points [t * _T, (t + 1) * _T) of every batch; block b < n_work
+    owns tiles [b * tiles_per_block, ...) and every block owns parameters
+    [b * chunk, ...) with their Adam moments (`tiles`, `params`). H is
+    padded to Hp, a multiple of 32. sin and cos of every layer stay in
+    shared memory unless `recompute`, which keeps each layer's z in a
+    global stash and recomputes them; hidden weights are staged through
+    n_wbuf buffers. Each of the n_work partial-gradient rows (and the
+    padded parameter buffer) is ld_part floats. A block takes its Adam
+    slice in passes of pass_cols columns, summing each over the rows in
+    row_groups groups of consecutive rows; its moments stay in shared
+    memory unless `moments_global`.
+    """
+    D_in: int
+    D_out: int
+    H: int
+    Lh: int
+    B: int
+    K: int
+    n_iters: int
+    Hp: int
+    n_params: int
+    n_tiles: int
+    tiles_per_block: int
+    n_work: int
+    G: int
+    chunk: int
+    pass_cols: int
+    n_wbuf: int
+    recompute: bool
+    moments_global: bool
+    ld_part: int
+    row_groups: int
+    smem_bytes: int
+
+    def tiles(self, b: int) -> range:
+        if b >= self.n_work:
+            return range(0)
+        t0 = b * self.tiles_per_block
+        return range(t0, min(t0 + self.tiles_per_block, self.n_tiles))
+
+    def params(self, b: int) -> range:
+        q0 = min(b * self.chunk, self.n_params)
+        return range(q0, min(q0 + self.chunk, self.n_params))
+
+    def array(self) -> np.ndarray:
+        return np.array([int(getattr(self, f)) for f in _PLAN_FIELDS],
+                        np.int64)
+
+
+def _smem_bytes(Hp, Lh, chunk, pass_cols, n_wbuf, recompute,
+                moments_global, row_groups):
+    """Shared memory of one block (the .cu's smem_layout, in bytes)."""
+    th = _T * Hp
+    act = (5 if recompute else 2 * (Lh + 1)) * th
+    nbuf = n_wbuf if Lh > 0 else 0
+    # hidden weights and their biases, first layer, head, the tile's pool
+    # data, GR, loss sums
+    small = nbuf * (Hp * Hp + Hp) + 4 * Hp + 4 * Hp + 4 + 20 * _T + 4 * _T \
+        + 32
+    moments = 0 if moments_global else 2 * chunk
+    return 4 * (act + small + moments + row_groups * pass_cols)
+
+
+def fit_plan(D_in, D_out, H, Lh, B, K, n_iters, n_sm, recompute=None):
+    """The launch plan for a fit on a card with `n_sm` SMs. recompute=None
+    keeps sin and cos when they fit (else recomputes them); True or False
+    forces the choice. Raises ValueError for what the kernel cannot run:
+    D_in or D_out other than 2 or 3, H outside 1..128, or kept sin and cos
+    that do not fit when forced."""
+    if D_in not in (2, 3) or D_out not in (2, 3) or not 1 <= H <= 128 \
+            or Lh < 0 or B < 1 or K < 1 or n_iters < 1 or n_sm < 1:
+        raise ValueError(f"fused fit: unsupported shape D_in={D_in} "
+                         f"D_out={D_out} H={H} Lh={Lh} B={B} K={K} "
+                         f"n_iters={n_iters} n_sm={n_sm}")
+    Hp = -(-H // 32) * 32
+    n_params = D_in * H + H + Lh * (H * H + H) + H * D_out + D_out
+    n_tiles = -(-B // _T)
+    tpb = -(-n_tiles // n_sm)
+    n_work = -(-n_tiles // tpb)
+    G = max(n_work, min(n_sm, -(-n_params // _CHUNK_MAX)))
+    chunk = -(-n_params // G)
+    chunk = -(-chunk // 4) * 4
+    pass_cols = min(chunk, _CHUNK_MAX)
+    # enough row groups to give every thread a column of one
+    row_groups = max(1, min(n_work, 16, _NT // (pass_cols // 4)))
+    # (recompute, n_wbuf, moments_global), cheapest first; the last fits
+    # any depth at H <= 128
+    modes = [(False, 2, False), (False, 1, False), (True, 2, False),
+             (True, 1, False), (True, 1, True)]
+    for rc, nb, mg in modes:
+        if recompute is not None and rc != recompute:
+            continue
+        smem = _smem_bytes(Hp, Lh, chunk, pass_cols, nb, rc, mg, row_groups)
+        if smem <= _SMEM_LIMIT:
+            return FitPlan(D_in, D_out, H, Lh, B, K, n_iters, Hp, n_params,
+                           n_tiles, tpb, n_work, G, chunk, pass_cols, nb, rc,
+                           mg, -(-n_params // 4) * 4, row_groups, smem)
+    raise ValueError(f"fused fit: sin and cos of Lh={Lh}, H={H} exceed "
+                     f"shared memory")
 
 
 def load_library() -> ctypes.CDLL:
@@ -40,10 +158,10 @@ def load_library() -> ctypes.CDLL:
     lib = cuda_build.load("fitkernel", _SOURCES)
     if not getattr(lib, "_nmc_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fit_run.argtypes = [P] * 11 + [I] * 8 + [P]
+        lib.fit_run.argtypes = [P] * 15 + [I, P]
         lib.fit_run.restype = I
-        lib.fit_smem_bytes.argtypes = [I] * 5
-        lib.fit_smem_bytes.restype = ctypes.c_longlong
+        lib.fit_error_string.argtypes = [I]
+        lib.fit_error_string.restype = ctypes.c_char_p
         lib._nmc_typed = True
     return lib
 
@@ -61,15 +179,13 @@ def _shapes(params, pool):
     return K, B, D_in, D_out, H, len(params) - 2
 
 
-def _check_cuda_inputs(params, cfg, pool, n_iters):
+def _check_cuda_inputs(params, cfg, pool):
+    """Shapes, device and dtype of a CUDA call (fit_plan checks the
+    sizes the kernel takes)."""
     if cfg.nonlinearity != "sine":
         raise NotImplementedError(
             f"fused fit: nonlinearity {cfg.nonlinearity!r} (only 'sine')")
     K, B, D_in, D_out, H, Lh = _shapes(params, pool)
-    if D_in not in (2, 3) or D_out not in (2, 3) or not 1 <= H <= 128 \
-            or Lh < 0 or n_iters < 1:
-        raise ValueError(f"fused fit: unsupported shape D_in={D_in} "
-                         f"D_out={D_out} H={H} Lh={Lh} n_iters={n_iters}")
     x, A, c, tgt, w = pool
     want = {"x": (K, B, D_in), "A": (K, B, D_out, D_out),
             "c": (K, B, D_out), "target": (K, B, D_out), "w": (K, B)}
@@ -89,48 +205,59 @@ def _check_cuda_inputs(params, cfg, pool, n_iters):
                              f"{dev}")
 
 
-def _tile(lib, D_in, D_out, H, Lh):
-    """Points per block: T * H <= _NT * _MAXR, shared memory in limit."""
-    T = 1
-    while 2 * T * H <= _NT * _MAXR and T < 64:
-        T *= 2
-    while T > 1 and lib.fit_smem_bytes(D_in, D_out, H, Lh, T) > _SMEM_LIMIT:
-        T //= 2
-    if lib.fit_smem_bytes(D_in, D_out, H, Lh, T) > _SMEM_LIMIT:
-        raise ValueError(f"fused fit: Lh={Lh}, H={H} exceeds shared memory")
-    return T
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _cuda_adam_fit(params, cfg, pool, n_iters, lr):
-    global launches
-    _check_cuda_inputs(params, cfg, pool, n_iters)
-    lib = load_library()
+    """fused_adam_fit on the card, with the plan fit_plan chooses."""
+    _check_cuda_inputs(params, cfg, pool)
     K, B, D_in, D_out, H, Lh = _shapes(params, pool)
+    plan = fit_plan(D_in, D_out, H, Lh, B, K, n_iters,
+                    _sm_count(pool[0].device))
+    return run_plan(plan, params, pool, lr)
+
+
+def run_plan(plan: FitPlan, params, pool, lr, phases=None):
+    """Launch the fit kernel with `plan` on checked CUDA inputs. phases, if
+    given, is a zeroed int64 tensor of len(PHASES) + 2 that receives block
+    0's cycles per phase, then the loop's cycles and nanoseconds."""
+    global launches
+    lib = load_library()
+    dev = pool[0].device
     x, A, c, tgt, w = (t.contiguous() for t in pool)
     # fold the loss normalization into the weights: loss = sum w' r^2
-    norm = torch.clamp(w.sum(dim=1, keepdim=True), min=1.0) * D_out
+    norm = torch.clamp(w.sum(dim=1, keepdim=True), min=1.0) * plan.D_out
     w_n = (w / norm).contiguous()
-    flat = torch.cat([t.reshape(-1) for p in params for t in p]).contiguous()
-    m = torch.zeros_like(flat)
-    v = torch.zeros_like(flat)
-    T = _tile(lib, D_in, D_out, H, Lh)
-    n_blocks = -(-B // T)
-    part = torch.empty((n_blocks, flat.numel() + 1), dtype=torch.float32,
-                       device=flat.device)
-    loss = torch.empty((), dtype=torch.float32, device=flat.device)
-    lr_host = np.ascontiguousarray(
-        _lr_array(lr, n_iters, "cpu").numpy(), np.float32)
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(flat.device):
-        rc = lib.fit_run(ptr(flat), ptr(m), ptr(v), ptr(x), ptr(A), ptr(c),
-                         ptr(tgt), ptr(w_n),
-                         ctypes.c_void_p(lr_host.ctypes.data), ptr(part),
-                         ptr(loss), n_iters, K, B, D_in, D_out, H, Lh, T,
-                         ctypes.c_void_p(stream))
-    launches += 1
+    flat = torch.zeros(plan.ld_part, dtype=torch.float32, device=dev)
+    torch.cat([t.reshape(-1) for p in params for t in p],
+              out=flat[:plan.n_params])
+    lr_dev = _lr_array(lr, plan.n_iters, dev).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty((plan.n_work, plan.ld_part), **f32)
+    loss_part = torch.empty(plan.n_work, **f32)
+    loss = torch.empty((), **f32)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    zstash = torch.empty((plan.n_work, (plan.Lh + 1) * _T * plan.Hp),
+                         **f32) if plan.recompute else None
+    moments = torch.zeros((plan.G, 2, plan.chunk),
+                          **f32) if plan.moments_global else None
+    arr = plan.array()
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        rc = lib.fit_run(ptr(flat), ptr(x), ptr(A), ptr(c), ptr(tgt),
+                         ptr(w_n), ptr(lr_dev), ptr(part), ptr(loss_part),
+                         ptr(loss), ptr(barrier), ptr(zstash), ptr(moments),
+                         ptr(phases), arr.ctypes.data_as(ctypes.c_void_p),
+                         len(arr), ctypes.c_void_p(
+                             torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"fit kernel launch failed: CUDA error {rc}")
+        why = lib.fit_error_string(rc).decode()
+        if rc == _COOP_TOO_LARGE:
+            why += f" (a grid of {plan.G} blocks cannot be co-resident)"
+        raise RuntimeError(f"fit kernel launch failed: CUDA error {rc}, "
+                           f"{why}")
+    launches += 1
     out, o = [], 0
     for W, b in params:
         nw, nb = W.numel(), b.numel()

@@ -280,8 +280,20 @@ def _fused_fit(fluid, params0, key, batch_fn):
         for lst, a in zip((xs, As, cs, ts, ws), (x, A, c, target, w)):
             lst.append(a)
     pool = tuple(torch.stack(lst) for lst in (xs, As, cs, ts, ws))
+    # with profile on, the fit's own device time (CUDA events) goes to
+    # stage_times["fit_kernel"], apart from the pool build and head solve
+    timed = fluid.profile and pool[0].is_cuda
+    if timed:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
     params, loss = fused_adam_fit(params0, fluid.siren_cfg, pool,
                                   fluid.max_n_iters, _fit_lr_array(fluid))
+    if timed:
+        ev[1].record()
+        ev[1].synchronize()
+        fluid.stage_times["fit_kernel"] = (
+            fluid.stage_times.get("fit_kernel", 0.0)
+            + ev[0].elapsed_time(ev[1]) / 1e3)
     if fluid.ls_head > 0:
         params = _ls_head_solve(fluid, params, key, batch_fn)
     return params, FitStats(iters=fluid.max_n_iters, loss=loss)

@@ -4,8 +4,10 @@
 shared library with a plain C interface, which the kernel wrappers load
 with ctypes. The library lands in `nmcfluid_torch/_build/` (listed in
 .gitignore) under a name keyed by a hash of the sources and flags, so an
-edit rebuilds and an unchanged tree reuses it. Nothing is built at import:
-the first wrapper call on a CUDA tensor builds.
+edit rebuilds and an unchanged tree reuses it; ptxas's report of each
+kernel's registers, shared memory and spills (`-Xptxas -v`) is kept
+beside it (`build_log`). Nothing is built at import: the first wrapper
+call on a CUDA tensor builds.
 """
 import ctypes
 import hashlib
@@ -18,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded = {}
 
@@ -53,11 +55,20 @@ def library_path(name: str, sources) -> str:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n"
                                f"{res.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(res.stdout + res.stderr)
         os.replace(tmp, out)        # atomic: concurrent builders agree
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_log(name: str, sources) -> str:
+    """nvcc's output for the library of `sources` (ptxas -v lines),
+    building it first if needed."""
+    with open(library_path(name, sources) + ".log") as f:
+        return f.read()
 
 
 def load(name: str, sources) -> ctypes.CDLL:

@@ -170,7 +170,7 @@ def test_cuda_pool_without_kernel_inputs_raises():
     bad = params_from_numpy(params)[:-1]      # head missing
     with pytest.raises(ValueError):
         tfk._check_cuda_inputs(bad, tcfg,
-                               tuple(torch.from_numpy(a) for a in pool), 5)
+                               tuple(torch.from_numpy(a) for a in pool))
 
 
 # ----------------------------------------------------------- ls_head

@@ -1,0 +1,150 @@
+"""The fit kernel's launch plan (sim/fitkernel.py::fit_plan) on the CPU.
+
+The persistent kernel in csrc/fitkernel.cu takes its plan from Python: how
+many blocks, which point tiles and which parameters each block owns, which
+buffers, and the shared memory they need. These tests hold the plan to
+that contract for the wrapper's shape families; the kernel itself runs
+only on a card (tests/test_torch_gpu.py, chip_smoke.py).
+"""
+import pathlib
+import re
+
+import pytest
+import torch
+
+from nmcfluid_torch.sim import fitkernel as fk
+from nmcfluid_torch.sim import fitprobe
+
+CU = pathlib.Path(fk.__file__).resolve().parents[1] / "csrc" / "fitkernel.cu"
+SM_COUNTS = (132, 114)          # H100 SXM, H100 PCIe
+# (D_in, D_out, H, Lh, B): the scenes' shape families, then deeper nets
+# than any scene ships, which the kernel takes too
+FAMILIES = {**{k: v[0] for k, v in fitprobe.SHAPES.items()},
+            "deep128": (2, 2, 128, 9, 16384),
+            "deep96": (3, 3, 96, 40, 4096),
+            "deep128x160": (2, 2, 128, 160, 4096),
+            "deep32": (2, 2, 32, 60, 1000)}
+
+
+def _plan(shape, n_sm, **kw):
+    D_in, D_out, H, Lh, B = FAMILIES[shape]
+    return fk.fit_plan(D_in, D_out, H, Lh, B, 512, 10000, n_sm, **kw)
+
+
+def _check_plan(plan, n_sm):
+    """Every tile and parameter owned by exactly one block, G <= SMs, and
+    shared memory within 227 KB and as the .cu lays it out."""
+    assert 1 <= plan.n_work <= plan.G <= n_sm
+    tiles = [t for b in range(plan.G) for t in plan.tiles(b)]
+    assert sorted(tiles) == list(range(plan.n_tiles))
+    assert (plan.n_tiles - 1) * fk._T < plan.B <= plan.n_tiles * fk._T
+    # parameter slices: consecutive ranges that tile [0, n_params)
+    stop = 0
+    for b in range(plan.G):
+        r = plan.params(b)
+        assert r.start == stop and len(r) <= plan.chunk
+        stop = r.stop
+    assert stop == plan.n_params
+    assert plan.chunk % 4 == 0 and plan.G * plan.chunk >= plan.n_params
+    assert plan.pass_cols % 4 == 0
+    assert plan.pass_cols <= min(plan.chunk, fk._CHUNK_MAX)
+    assert plan.ld_part % 4 == 0 and plan.ld_part >= plan.n_params
+    assert plan.Hp % 32 == 0 and plan.H <= plan.Hp <= 128
+    assert 1 <= plan.row_groups <= plan.n_work
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.smem_bytes == fk._smem_bytes(
+        plan.Hp, plan.Lh, plan.chunk, plan.pass_cols, plan.n_wbuf,
+        plan.recompute, plan.moments_global, plan.row_groups)
+    assert len(plan.array()) == len(fk._PLAN_FIELDS)
+
+
+@pytest.mark.parametrize("n_sm", SM_COUNTS)
+@pytest.mark.parametrize("shape", tuple(FAMILIES))
+def test_plan_owns_every_tile_and_parameter_once(shape, n_sm):
+    _check_plan(_plan(shape, n_sm), n_sm)
+
+
+@pytest.mark.parametrize("Lh", (0, 7, 40, 200))
+@pytest.mark.parametrize("H", (32, 64, 96, 128))
+def test_every_depth_fits_a_block(H, Lh):
+    """Any depth at H <= 128: sin and cos kept while they fit, else each
+    layer's z in the global stash (five shared buffers whatever the depth),
+    and the Adam moments in global memory once they do not fit beside."""
+    plan = fk.fit_plan(2, 2, H, Lh, 4096, 8, 100, 132)
+    _check_plan(plan, 132)
+    if Lh >= 40:
+        assert plan.recompute
+    if plan.recompute:       # no term of the layout grows with depth
+        assert plan.smem_bytes == fk._smem_bytes(
+            plan.Hp, 1, plan.chunk, plan.pass_cols, plan.n_wbuf, True,
+            plan.moments_global, plan.row_groups)
+
+
+def test_taylor_green_plan():
+    """One 32-point tile per block over 128 blocks; sin and cos kept, two
+    weight buffers, the Adam slice in one pass with its moments on chip."""
+    plan = _plan("tg", 132)
+    assert (plan.G, plan.n_work, plan.tiles_per_block, plan.n_tiles) == \
+        (128, 128, 1, 128)
+    assert (plan.Hp, plan.chunk, plan.pass_cols, plan.n_params) == \
+        (64, 200, 200, 25282)
+    assert (plan.recompute, plan.n_wbuf, plan.moments_global) == \
+        (False, 2, False)
+
+
+def test_plan_buffers_follow_shared_memory():
+    """Two weight buffers when they fit, then one, then recomputed sin and
+    cos, then the moments in global memory: each choice only when the one
+    before does not fit."""
+    karman = _plan("karman", 132)
+    assert (karman.recompute, karman.n_wbuf, karman.tiles_per_block) == \
+        (False, 1, 4)
+    forced = _plan("karman", 132, recompute=True)   # room for two buffers
+    assert (forced.recompute, forced.n_wbuf) == (True, 2)
+    deep = fk.fit_plan(2, 2, 128, 4, 4096, 8, 100, 132)
+    assert (deep.recompute, deep.n_wbuf, deep.moments_global) == \
+        (True, 2, False)
+    deeper = _plan("deep128", 132)             # two Adam passes a block
+    assert (deeper.recompute, deeper.n_wbuf, deeper.moments_global) == \
+        (True, 1, False)
+    assert deeper.chunk > deeper.pass_cols == fk._CHUNK_MAX
+    few_sms = fk.fit_plan(2, 2, 128, 9, 4096, 8, 100, 8)
+    assert (few_sms.G, few_sms.moments_global) == (8, True)
+
+
+@pytest.mark.parametrize("args", [
+    dict(D_in=4), dict(D_out=1), dict(H=0), dict(H=129), dict(Lh=-1),
+    dict(B=0), dict(K=0), dict(n_iters=0), dict(n_sm=0),
+    dict(H=128, Lh=9, recompute=False),  # kept sin and cos do not fit
+])
+def test_unsupported_shapes_raise(args):
+    kw = dict(D_in=2, D_out=2, H=64, Lh=2, B=4096, K=8, n_iters=100,
+              n_sm=132)
+    kw.update(args)
+    with pytest.raises(ValueError):
+        fk.fit_plan(**kw)
+
+
+def _enum(name):
+    body = re.search(r"enum " + name + r" \{(.*?)\};", CU.read_text(),
+                     re.S).group(1)
+    return [t.strip() for t in body.replace("\n", " ").split(",")
+            if t.strip()]
+
+
+def test_plan_fields_and_phases_match_the_kernel():
+    """The int64 plan array and the phase times are read by position on
+    the C side: the Python names follow the .cu's enums in order."""
+    fields = _enum("PlanField")
+    assert fields[-1] == "N_PLAN_FIELDS"
+    assert [f[2:].lower() for f in fields[:-1]] == \
+        [f.lower() for f in fk._PLAN_FIELDS]
+    phases = _enum("Phase")
+    assert phases[-1] == "N_PHASES"
+    assert [p[3:].lower() for p in phases[:-1]] == list(fk.PHASES)
+
+
+def test_probe_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        fitprobe.main([])

@@ -8,8 +8,10 @@ leave it out:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Each test holds a kernel against its plain version on the same card (the
-fit against `reference_adam_fit`, the gathers against
-`reference_gather_rows`), with inputs made from a numpy seed.
+fit against `reference_adam_fit`, at the scenes' shape families and at
+deeper nets, the gathers against `reference_gather_rows`), with inputs
+made from a numpy seed; the fit also for bit-identical repeats and for a
+refused launch.
 """
 import functools
 
@@ -17,10 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from nmcfluid_torch.models.siren import SirenConfig, init_siren
 from nmcfluid_torch.ops import radial_tables as rt
 from nmcfluid_torch.sim import fitkernel as fk
-from nmcfluid_torch.utils.keys import Key
+from nmcfluid_torch.sim.fitprobe import make_problem
 from nmcfluid_torch.wost import pallas_probe as pp
 
 pytestmark = pytest.mark.gpu
@@ -32,23 +33,6 @@ def cuda():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
                     "mode")
     return torch.device("cuda")
-
-
-def make_problem(dev, *, D_in=2, D_out=2, H=64, Lh=2, K=2, B=4096, seed=0):
-    """SIREN params from the port's initializer and a pool from numpy with
-    the distributions of tests/test_fitkernel.py::make_problem."""
-    cfg = SirenConfig(D_in, D_out, num_hidden_layers=Lh, hidden_features=H)
-    params = init_siren(Key(seed), cfg, dev)
-    rng = np.random.default_rng(seed)
-
-    def f32(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    pool = (f32(rng.uniform(-1.0, 1.0, (K, B, D_in))),
-            f32(rng.normal(size=(K, B, D_out, D_out)) * 0.5),
-            f32(rng.normal(size=(K, B, D_out)) * 0.1),
-            f32(rng.normal(size=(K, B, D_out)) * 0.2),
-            f32(rng.uniform(size=(K, B)) > 0.25))
-    return cfg, params, pool
 
 
 def _assert_params_close(got, want, atol):
@@ -90,6 +74,59 @@ def test_pool_cycling_and_lr_array_on_card(cuda):
     p_k, _ = fk.fused_adam_fit(params, cfg, pool, 12, lr)
     p_r, _ = fk.reference_adam_fit(params, cfg, pool, 12, lr)
     _assert_params_close(p_k, p_r, 2e-6)
+
+
+@pytest.mark.parametrize("shape, n_sm, mode", [
+    # deeper than any scene: the plan's own choice at each, checked
+    (dict(D_in=3, D_out=3, H=128, Lh=4, B=4096), None,
+     (True, 2, False)),                # recompute, two weight buffers
+    (dict(D_in=2, D_out=2, H=128, Lh=9, B=4096), None,
+     (True, 1, False)),                # one buffer, two Adam passes
+    (dict(D_in=2, D_out=2, H=128, Lh=9, B=4096), 8,
+     (True, 1, True)),                 # 8 blocks: moments in global memory
+])
+def test_deep_nets_match_twin_on_card(cuda, monkeypatch, shape, n_sm, mode):
+    """The kernel where sin and cos do not fit shared memory (z kept in the
+    global stash and sin and cos recomputed), where the Adam slice takes
+    passes, and where the moments leave shared memory: 25 iterations at
+    lr 1e-4, params to rtol 2e-4 / atol 1e-3 as the deep families, the
+    loss to 1e-2."""
+    if n_sm is not None:
+        monkeypatch.setattr(fk, "_sm_count", lambda dev: n_sm)
+    cfg, params, pool = make_problem(cuda, **shape)
+    K, B, D_in, D_out, H, Lh = fk._shapes(params, pool)
+    plan = fk.fit_plan(D_in, D_out, H, Lh, B, K, 25, fk._sm_count(cuda))
+    assert (plan.recompute, plan.n_wbuf, plan.moments_global) == mode
+    if Lh == 9 and n_sm is None:
+        assert plan.chunk > plan.pass_cols
+    p_k, l_k = fk.fused_adam_fit(params, cfg, pool, 25, 1e-4)
+    p_r, l_r = fk.reference_adam_fit(params, cfg, pool, 25, 1e-4)
+    _assert_params_close(p_k, p_r, 1e-3)
+    torch.testing.assert_close(l_k, l_r, rtol=1e-2, atol=1e-9)
+
+
+def test_two_calls_are_bit_identical_on_card(cuda):
+    """No float atomics: the same inputs give the same bits, parameters
+    and loss, over a fit that cycles the pool (TG shape family)."""
+    cfg, params, pool = make_problem(cuda, H=64, Lh=6, K=3, B=4096, seed=5)
+    p_a, l_a = fk.fused_adam_fit(params, cfg, pool, 40, 1e-3)
+    p_b, l_b = fk.fused_adam_fit(params, cfg, pool, 40, 1e-3)
+    assert torch.equal(l_a, l_b)
+    for (a, b), (c, d) in zip(p_a, p_b):
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_grid_that_cannot_be_co_resident_raises(cuda, monkeypatch):
+    """A plan for more blocks than the card holds at once is refused by
+    the cooperative launch: the wrapper raises and counts no launch."""
+    real = fk._sm_count(cuda)
+    monkeypatch.setattr(fk, "_sm_count", lambda dev: 100 * real)
+    cfg, params, pool = make_problem(cuda, K=1, B=32 * 3000)
+    assert fk.fit_plan(2, 2, 64, 2, 32 * 3000, 1, 3, 100 * real).G == 3000
+    before = fk.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        fk.fused_adam_fit(params, cfg, pool, 3, 1e-3)
+    assert fk.launches == before
 
 
 def test_launch_counter_and_no_fallback(cuda):
