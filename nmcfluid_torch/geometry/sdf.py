@@ -1,0 +1,26 @@
+"""Analytic signed-distance functions of scene obstacles (port of
+nmcfluid/geometry/sdf.py; the circle of the karman family only).
+
+Convention of the reference: sdf > 0 in the fluid, < 0 inside the
+obstacle.
+"""
+import torch
+
+
+def sqrt_rn(x):
+    """float32 sqrt, correctly rounded on every device, as the JAX
+    package's. CUDA's is; PyTorch's vectorized CPU sqrt is off by an ulp
+    on ~0.7% of inputs (AVX-512 build), and the karman ramps (1/eps) and
+    circle normals (1/r) scale an ulp up past 1e-6."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
+def circle(center, radius):
+    cx, cy = float(center[0]), float(center[1])
+    r = float(radius)
+
+    def f(x):
+        return sqrt_rn((x[..., 0] - cx) ** 2 + (x[..., 1] - cy) ** 2) - r
+    return f

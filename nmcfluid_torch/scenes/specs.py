@@ -1,9 +1,21 @@
-"""Scene specifications (port of scenes/specs.py, Taylor-Green only).
+"""Scene specifications (port of scenes/specs.py: Taylor-Green and the
+karman family).
 
 Taylor-Green (examples/taylorgreen/run.sh): the closed square
 [0.000447, 6.279553]^2 with analytic wall queries, a 6 x 64 SIREN, 64^2
 training batches, a 512^2 pressure cloud with 500 walks, sigma = 350.
-The other scenes of the JAX catalog are not ported yet.
+
+karman (examples/karman/run.sh): the open channel x in [-1.10321,
+1.906778], y in [-0.598466, 0.60349] (top and bottom walls, inlet and
+outlet open) around one circle at (-0.803568, -0.005022), r = 0.044532,
+measured from examples/karman/geometry_1cyl_long_open.obj; a 2 x 128
+SIREN, 128^2 training batches, fresh weights for every phase fit
+(reset_wts), a ramp width of 3e-2 that the driver halves after the
+initial fit (main.py:161-163). karman2cyl and karman3cyl are the
+reference's 2- and 3-cylinder channels (src/3d/wost/geometry_2cyl.obj,
+geometry_3cyl.obj, measured) with karman's hyperparameters.
+
+The other scenes of the JAX catalog are not ported yet and raise.
 """
 import dataclasses
 import math
@@ -12,10 +24,20 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..geometry.analytic2d import make_analytic2d
+from ..geometry import sdf
+from ..geometry.analytic2d import FAR, make_analytic2d
 from ..wost.solver import WalkSettings
 
+# measured from examples/karman/geometry_1cyl_long_open.obj
+KARMAN_BBOX = (-1.10321, 1.906778, -0.598466, 0.60349)
+KARMAN_OBS_C = (-0.803568, -0.005022)
+KARMAN_OBS_R = 0.044532
 TG_LO, TG_HI = 0.000447, 6.279553   # examples/taylorgreen/square.obj
+# measured from src/3d/wost/geometry_2cyl.obj and geometry_3cyl.obj
+NCYL_BBOX = (-1.995, 1.9942, -0.995, 0.9942)
+CYL2_OBS = ((-1.0004, -0.0004, 0.1310), (-0.0004, -0.0004, 0.1312))
+CYL3_OBS = ((-1.0004, -0.0004, 0.1310), (-0.0004, 0.1496, 0.1310),
+            (-0.0004, -0.1504, 0.1310))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -29,17 +51,24 @@ class SceneSpec:
     dt: float
     sample_resolution: int
     wost_resolution: int
+    vel_vis_resolution: int
     bdry_eps: float
     lr: float = 1e-5
     max_n_iters: int = 10_000
     reset_wts: bool = True
+    karman_vel: float = 0.5
     nonlinearity: str = "sine"
     sample_pattern: str = "random"      # config.py --sample (all examples)
     # WoSt block (wost.json; identical across shipped examples)
     absorption: float = 350.0
     n_walks: int = 500
     boundary_distance_mask: float = 1e-3
+    # obstacles: one circle (karman), or a tuple of (cx, cy, r) circles
+    obstacle_center: Optional[Tuple[float, ...]] = None
+    obstacle_radius: Optional[float] = None
+    obstacles: Optional[Tuple[Tuple[float, float, float], ...]] = None
     _boundary_builder: Optional[Callable] = None
+    _obstacle_sdf_builder: Optional[Callable] = None
     _source_builder: Optional[Callable] = None
 
     @cached_property
@@ -47,6 +76,18 @@ class SceneSpec:
         """Neumann boundary for the WoSt solve (on the CPU; move it with
         `.to(device)`)."""
         return self._boundary_builder(self)
+
+    @cached_property
+    def obstacle_sdf(self):
+        """sdf > 0 in the fluid, or None. The radius includes
+        boundaryDistanceMask (src/2d/main.py:96)."""
+        if self._obstacle_sdf_builder is None:
+            return None
+        return self._obstacle_sdf_builder(self)
+
+    @property
+    def has_obstacle(self):
+        return self._obstacle_sdf_builder is not None
 
     def source_velocity(self, x, key=None):
         """Initial velocity at points x (src/2d/sources.py)."""
@@ -57,6 +98,16 @@ class SceneSpec:
         kw.update(over)
         return WalkSettings(**kw)
 
+    def fluid_mask(self, x):
+        """True where x is in the trainable fluid region (the reference's
+        rejection filter in sample_in_training, base.py:239-249)."""
+        m = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+        if self.obstacle_sdf is not None:
+            m = m & (self.obstacle_sdf(x) > 0.0)
+        return m
+
+
+# ------------------------------------------------------------------ sources
 
 def _tg_source(spec, x, key):
     """Taylor-Green initial velocity, rescaled from the scene box to
@@ -69,10 +120,65 @@ def _tg_source(spec, x, key):
     return torch.stack([u, v], dim=-1)
 
 
+def _karman_source(spec, x, key):
+    """Uniform inflow ramped off the obstacles (src/2d/sources.py:33-42)."""
+    vel = torch.stack([torch.full(x.shape[:-1], spec.karman_vel,
+                                  device=x.device),
+                       torch.zeros(x.shape[:-1], device=x.device)], dim=-1)
+    w = torch.clamp(spec.obstacle_sdf(x), 0.0, spec.bdry_eps) / spec.bdry_eps
+    return vel * w[..., None]
+
+
+# ----------------------------------------------------------------- geometry
+
 def _tg_boundary(spec):
     """Closed square box with analytic closed-form queries."""
     return make_analytic2d((TG_LO, TG_LO), (TG_HI, TG_HI))
 
+
+def _channel(scene_size, circles):
+    """Open channel (y walls only; inlet and outlet open) + exact circles;
+    the wall chains' corner endpoints are always-silhouette points like
+    the reference asset's open-chain ends."""
+    x0, x1, y0, y1 = scene_size
+    corners = [(x0, y0), (x1, y0), (x0, y1), (x1, y1)]
+    return make_analytic2d((-FAR, y0), (FAR, y1), circles=circles,
+                           sil_pts=corners, bbox=((x0, y0), (x1, y1)))
+
+
+def _karman_boundary(spec):
+    return _channel(KARMAN_BBOX, [(*KARMAN_OBS_C, KARMAN_OBS_R)])
+
+
+def _ncyl_boundary(spec):
+    return _channel(spec.scene_size, list(spec.obstacles))
+
+
+def _ncyl_sdf(spec):
+    """min over the circle SDFs, each grown by boundaryDistanceMask (the
+    reference grows its fitted circle the same way, main.py:96)."""
+    fns = [sdf.circle((cx, cy), r + spec.boundary_distance_mask)
+           for cx, cy, r in spec.obstacles]
+
+    def f(x):
+        d = fns[0](x)
+        for g in fns[1:]:
+            d = torch.minimum(d, g(x))
+        return d
+    return f
+
+
+def _karman_sdf(spec):
+    return sdf.circle(KARMAN_OBS_C,
+                      KARMAN_OBS_R + spec.boundary_distance_mask)
+
+
+# ------------------------------------------------------------------ catalog
+
+_KARMAN_FAMILY = dict(
+    dim=2, num_hidden_layers=2, hidden_features=128, dt=0.05,
+    sample_resolution=128, wost_resolution=512, vel_vis_resolution=200,
+    bdry_eps=3e-2, karman_vel=0.5, _source_builder=_karman_source)
 
 SCENES = {
     # examples/taylorgreen/run.sh
@@ -80,9 +186,24 @@ SCENES = {
         name="taylorgreen", dim=2,
         scene_size=(TG_LO, TG_HI, TG_LO, TG_HI),
         num_hidden_layers=6, hidden_features=64, dt=0.001,
-        sample_resolution=64, wost_resolution=512, bdry_eps=1e-3,
-        reset_wts=False,
+        sample_resolution=64, wost_resolution=512, vel_vis_resolution=60,
+        bdry_eps=1e-3, reset_wts=False,
         _boundary_builder=_tg_boundary, _source_builder=_tg_source),
+    # examples/karman/run.sh
+    "karman": SceneSpec(
+        name="karman", scene_size=KARMAN_BBOX,
+        obstacle_center=KARMAN_OBS_C, obstacle_radius=KARMAN_OBS_R,
+        _boundary_builder=_karman_boundary,
+        _obstacle_sdf_builder=_karman_sdf, **_KARMAN_FAMILY),
+    # the reference's 2- and 3-cylinder channels; hyperparameters as karman
+    "karman2cyl": SceneSpec(
+        name="karman2cyl", scene_size=NCYL_BBOX, obstacles=CYL2_OBS,
+        _boundary_builder=_ncyl_boundary, _obstacle_sdf_builder=_ncyl_sdf,
+        **_KARMAN_FAMILY),
+    "karman3cyl": SceneSpec(
+        name="karman3cyl", scene_size=NCYL_BBOX, obstacles=CYL3_OBS,
+        _boundary_builder=_ncyl_boundary, _obstacle_sdf_builder=_ncyl_sdf,
+        **_KARMAN_FAMILY),
 }
 
 

@@ -1,18 +1,20 @@
 """The neural Monte Carlo fluid stepper (port of nmcfluid/sim/fluid.py).
 
-Per timestep (model_split.py:44-82), for the Taylor-Green slice:
+Per timestep (model_split.py:44-82), for the ported 2D scenes
+(Taylor-Green and the karman family):
     advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
     project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
              cloud, then fit u(x) to u_prev(x) - grad p(x)
 with `add_source` fitting the initial field once first. Every phase fit
 runs the fused fit (sim/fitkernel.py) on a K-batch pool and then the
-closed-form head solve (`ls_head`). On a CUDA device the fit is the
-hand-written kernel; on the CPU its plain twin.
+closed-form head solve (`ls_head`); in scenes with `reset_wts` (the
+karman family) each phase fit starts from fresh weights. On a CUDA device
+the fit is the hand-written kernel; on the CPU its plain twin.
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
-JAX step. Branches outside the Taylor-Green slice raise
-NotImplementedError naming the flag.
+JAX step. Flags and scenes not ported yet raise NotImplementedError
+naming them.
 """
 import math
 import time
@@ -48,15 +50,14 @@ class FitStats(NamedTuple):
 
 def _unsupported(flag, value):
     raise NotImplementedError(
-        f"NeuralFluid: {flag}={value!r} is not ported yet (the Taylor-Green "
-        "slice runs the defaults)")
+        f"NeuralFluid: {flag}={value!r} is not ported yet")
 
 
 class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
-    Takes the JAX package's constructor arguments; those outside the
-    Taylor-Green slice raise NotImplementedError when set. `device` is
+    Takes the JAX package's constructor arguments; those not ported yet
+    raise NotImplementedError when set. `device` is
     where every tensor is created: None means the GPU, and raises
     RuntimeError without one; device="cpu" asks for the CPU."""
 
@@ -92,7 +93,7 @@ class NeuralFluid:
         if lr_schedule not in ("constant", "cosine", "tail"):
             raise ValueError(f"NeuralFluid: unknown lr_schedule "
                              f"{lr_schedule!r}")
-        if scene.dim != 2 or scene.reset_wts:
+        if scene.dim != 2:
             _unsupported("scene", scene.name)
         self.scene = scene
         self.device = get_device(device)
@@ -195,6 +196,14 @@ class NeuralFluid:
         return SimState(params=params, P=torch.zeros((), device=self.device),
                         eps=float(self.scene.bdry_eps), timestep=0, key=key)
 
+    def _phase_init(self, state: SimState, key):
+        """Fresh weights when the scene resets them (create_optimizer(
+        reset=True), base.py:61-71), else a warm start from the current
+        params."""
+        if self.scene.reset_wts:
+            return init_siren(key, self.siren_cfg, self.device)
+        return state.params
+
     # ------------------------------------------------------------ public API
 
     def add_source(self, state: SimState) -> SimState:
@@ -209,11 +218,11 @@ class NeuralFluid:
     def step(self, state: SimState) -> SimState:
         """One operator-split timestep (model_split.py:44-82)."""
         state = state._replace(timestep=state.timestep + 1)
-        key, _, k2, k3, k4 = state.key.split(5)
+        key, k1, k2, k3, k4 = state.key.split(5)
         prev = state.params
         p1, st_a = self._timed(
-            "advect_fit", _fit_advect, self, prev, prev, self.scene.dt, k2,
-            state.eps, state.timestep)
+            "advect_fit", _fit_advect, self, self._phase_init(state, k1),
+            prev, self.scene.dt, k2, state.eps, state.timestep)
         p2, P, st_p = self._project(state, p1, p1, k3, k4)
         self._last_stats = (st_a, st_p)
         return state._replace(params=p2, P=P, key=key)
@@ -228,10 +237,32 @@ class NeuralFluid:
         pts, valid, p, grad_p = (torch.cat(xs) for xs in zip(*chunks))
         self._last_projection = (pts, p, grad_p, div_grid)
         P = torch.mean(p)     # model_split.py:219
+        if self.scene.reset_wts:
+            # the JAX package draws the reset weights from fold_in(k_fit,
+            # 1), the key of the fit's pool batch 1 (reproduced, not fixed)
+            params_init = self._phase_init(state, k_fit.fold_in(1))
         params, stats = self._timed(
             "project_fit", _fit_project, self, params_init, prev, pts,
             grad_p, k_fit, state.eps, state.timestep)
         return params, P, stats
+
+    # ------------------------------------------------------------- measures
+
+    def kinetic_energy(self, state, resolution=None):
+        """0.5 mean u^2 + P over the cell-centered vel_vis grid
+        (base.py:303-306; the mean runs over both components)."""
+        res = resolution or self.scene.vel_vis_resolution
+        u = _velocity_grid(self, state.params, state.eps, state.timestep,
+                           res, False)
+        return 0.5 * torch.mean(u ** 2) + state.P
+
+
+def _velocity_grid(fluid, params, eps, t, resolution, with_boundary):
+    """The velocity (hard BCs applied) on the scene's uniform grid."""
+    pts = sampling.uniform_grid(fluid.scene.scene_size, resolution,
+                                with_boundary, device=fluid.device)
+    with torch.no_grad():
+        return fluid.velocity(params, pts, eps=eps, t=t)
 
 
 # ------------------------------------------------------------ phase fits

@@ -1,7 +1,8 @@
 """Training-point samplers (port of nmcfluid/sim/sampling.py).
 
-Grids use indexing='ij'. Only the scenes without obstacles are ported, so
-`fluid_points` is a plain uniform draw and every point is valid.
+Grids use indexing='ij'. In scenes with obstacles `fluid_points` redraws
+the points that fall inside one for a fixed number of rounds and returns
+a validity mask, as the JAX package does.
 """
 import torch
 
@@ -53,11 +54,27 @@ def training_points(key, n, scene, pattern="random", resolution=None,
     return fluid_points(key, n, scene, device=device)
 
 
-def fluid_points(key, n, scene, device="cpu"):
-    """Random points in the fluid region, which is the whole box in the
-    ported scenes (no obstacles). Returns (pts (n, dim), valid)."""
-    return (random_points(key, n, scene.scene_size, device),
-            torch.ones(n, dtype=torch.bool, device=device))
+def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):
+    """Random points restricted to the fluid region by fixed-round
+    rejection (sampling.py:79-101): round i draws the box with
+    key.fold_in(i) and fills the slots still invalid. Returns (pts (n,
+    dim), valid (n,) bool); slots still invalid after `rounds` rounds are
+    flagged for a zero loss weight (the reference shrinks the batch
+    instead, base.py:239-249). The rounds stop once every slot is valid:
+    a later round would change nothing."""
+    if not scene.has_obstacle:
+        return (random_points(key, n, scene.scene_size, device),
+                torch.ones(n, dtype=torch.bool, device=device))
+    pts = random_points(key.fold_in(0), n, scene.scene_size, device)
+    valid = scene.fluid_mask(pts)
+    for i in range(1, rounds):
+        if bool(valid.all()):
+            break
+        cand = random_points(key.fold_in(i), n, scene.scene_size, device)
+        cand_ok = scene.fluid_mask(cand)
+        pts = torch.where((~valid & cand_ok)[:, None], cand, pts)
+        valid = valid | cand_ok
+    return pts, valid
 
 
 def nearest_lookup(grid, scene_size, y):

@@ -28,6 +28,11 @@ from .pool import (_SALT_JIT_B, _SALT_JIT_S, _SALT_U2A, _SALT_U2B,
 from .solver import (ACTIVE, DONE_RR, DROP_MAXLEN, WalkSettings, WalkState,
                      WostScene, _advance, _fresh_state, check_supported)
 
+# walk counts since the caller last zeroed them: generations run, steps
+# advanced (one `_advance` each) and the lanes those steps advanced; read
+# by chip_smoke.py to split the solve's time by step
+counts = {"generations": 0, "steps": 0, "lane_steps": 0}
+
 
 def _start_aligned(scene, settings, pd: PointData, seed2, w, live,
                    source_args, n_pairs, n_anti, N):
@@ -75,7 +80,10 @@ def _run_generation(scene, greens, settings, st: WalkState, pl, seed_w,
     status = st.status.clone()
     idx = torch.arange(status.shape[0], device=status.device)
     sub, pl_sub = st, pl
+    counts["generations"] += 1
     for _ in range(cap):
+        counts["steps"] += 1
+        counts["lane_steps"] += idx.numel()
         steps = sub.steps
 
         def draw(salt, shape, steps=steps, pl_sub=pl_sub):

@@ -9,6 +9,7 @@ as the JAX package, so whole steps can be held against each other.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nmcfluid_torch.ops.fastrand import seed_from_words
@@ -56,3 +57,81 @@ def to_np(t):
 def params_np(params):
     """A parameter list of either package as a flat list of numpy arrays."""
     return [to_np(a) for pair in params for a in pair]
+
+
+def _record(monkeypatch, module, log, jax_side):
+    """Log each phase fit's output params, its ls_head branch (True when
+    the solved head replaced the Adam endpoint) and each phase's initial
+    weights (`_phase_init`); on the JAX side also each pressure chunk's
+    inputs and outputs."""
+    fits = {name: getattr(module, name)
+            for name in ("_fit_source", "_fit_advect", "_fit_project")}
+    for name, fn in fits.items():
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            params, stats = _fn(*a, **kw)
+            log["fits"].append((_name, params_np(params)))
+            return params, stats
+        monkeypatch.setattr(module, name, wrapped)
+    solve = module._ls_head_solve
+
+    def ls_wrapped(fluid, params, key, batch_fn):
+        out = solve(fluid, params, key, batch_fn)
+        if jax_side:
+            moved = jnp.any(out[-1][0] != params[-1][0])
+            jax.debug.callback(lambda m: log["branch"].append(bool(m)),
+                               moved)
+        else:
+            log["branch"].append(out[-1][0] is not params[-1][0])
+        return out
+    monkeypatch.setattr(module, "_ls_head_solve", ls_wrapped)
+    init = module.NeuralFluid._phase_init
+
+    def init_wrapped(self, state, key):
+        out = init(self, state, key)
+        log["init"].append(params_np(out))
+        return out
+    monkeypatch.setattr(module.NeuralFluid, "_phase_init", init_wrapped)
+    if jax_side:
+        solve_p = module._pressure_solve
+
+        def p_wrapped(fluid, wsc, source_args, key):
+            out = solve_p(fluid, wsc, source_args, key)
+            log["pressure"].append((np.asarray(source_args[0]), key,
+                                    [np.asarray(a) for a in out]))
+            return out
+        monkeypatch.setattr(module, "_pressure_solve", p_wrapped)
+
+
+def chained_runs(scene, sizes, halve_eps=False):
+    """add_source + step of `scene` in both packages from seed 0, the port
+    with the JAX-replay key and the JAX package with its fused fit (the
+    Pallas kernel in interpret mode); `halve_eps` halves the ramp width
+    between the two, as the JAX CLI does for the karman family
+    (nmcfluid/run.py:498-500). Returns (jax fluid, jax state, port fluid,
+    port state, logs) with the logs of `_record`."""
+    import nmcfluid.sim.fluid as jfluid
+    import nmcfluid_torch.sim.fluid as tfluid
+    from nmcfluid.scenes import get_scene as j_get_scene
+    from nmcfluid_torch.scenes import get_scene as t_get_scene
+
+    mp = pytest.MonkeyPatch()
+    logs = {"jax": {"fits": [], "branch": [], "init": [], "pressure": []},
+            "torch": {"fits": [], "branch": [], "init": []}}
+    try:
+        _record(mp, jfluid, logs["jax"], True)
+        _record(mp, tfluid, logs["torch"], False)
+        jf = jfluid.NeuralFluid(j_get_scene(scene), fit_mode="fused",
+                                **sizes)
+        js = jf.add_source(jf.init_state(0))
+        if halve_eps:
+            js = js._replace(eps=js.eps / 2)
+        js = jf.step(js)
+        jax.effects_barrier()
+        tf = tfluid.NeuralFluid(t_get_scene(scene), device="cpu", **sizes)
+        ts = tf.add_source(tf.init_state(key=JaxKey.from_seed(0)))
+        if halve_eps:
+            ts = ts._replace(eps=ts.eps / 2)
+        ts = tf.step(ts)
+    finally:
+        mp.undo()
+    return jf, js, tf, ts, logs

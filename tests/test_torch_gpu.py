@@ -11,7 +11,8 @@ Each test holds a kernel against its plain version on the same card (the
 fit against `reference_adam_fit`, at the scenes' shape families and at
 deeper nets, the gathers against `reference_gather_rows`), with inputs
 made from a numpy seed; the fit also for bit-identical repeats and for a
-refused launch.
+refused launch. One more holds a small karman WoSt chunk on the card
+against the same chunk on the CPU.
 """
 import functools
 
@@ -143,6 +144,36 @@ def test_launch_counter_and_no_fallback(cuda):
         with pytest.raises(ValueError):
             fk.fused_adam_fit(p, cfg, pl, 3, 1e-3)
     assert fk.launches == before + 1
+
+
+def test_karman_wost_chunk_on_card_matches_cpu(cuda):
+    """One small karman pressure chunk (the channel's walls, its circle,
+    walks escaping through the open inlet and outlet) on the card against
+    the CPU with the same keys: the divergence grid of a (64, 26) karman
+    grid at rtol 1e-4 / atol 5e-5, the same cloud and valid flags, and p /
+    grad p at the gen tolerances of tests/test_gen.py (same streams, other
+    sum order)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.utils.keys import Key
+    kw = dict(sample_resolution=16, wost_resolution=16, div_resolution=64,
+              n_walks=48, max_n_iters=50, fit_pool=8)
+    gpu = tfluid.NeuralFluid(get_scene("karman"), device=cuda, **kw)
+    cpu = tfluid.NeuralFluid(get_scene("karman"), device="cpu", **kw)
+    params = gpu.init_state(3).params
+    params_cpu = [(W.cpu(), b.cpu()) for W, b in params]
+    eps = gpu.scene.bdry_eps / 2
+    div_g = tfluid._divergence_grid(gpu, params, eps, 1)
+    div_c = tfluid._divergence_grid(cpu, params_cpu, eps, 1)
+    assert div_g.shape == (64, 26)
+    torch.testing.assert_close(div_g.cpu(), div_c, rtol=1e-4, atol=5e-5)
+    pts_g, valid_g, p_g, g_g = tfluid._pressure_solve(gpu, (div_g,), Key(11))
+    pts_c, valid_c, p_c, g_c = tfluid._pressure_solve(cpu, (div_g.cpu(),),
+                                                      Key(11))
+    torch.testing.assert_close(pts_g.cpu(), pts_c, rtol=2e-7, atol=0)
+    assert torch.equal(valid_g.cpu(), valid_c)
+    torch.testing.assert_close(p_g.cpu(), p_c, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(g_g.cpu(), g_c, rtol=2e-3, atol=2e-4)
 
 
 @functools.lru_cache(maxsize=None)

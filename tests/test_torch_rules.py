@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
 def test_neural_fluid_needs_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    scene = get_scene("taylorgreen")
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        NeuralFluid(scene)
-    assert NeuralFluid(scene, device="cpu").device == torch.device("cpu")
+    for name in ("taylorgreen", "karman"):
+        scene = get_scene(name)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            NeuralFluid(scene)
+        assert NeuralFluid(scene, device="cpu").device == torch.device("cpu")

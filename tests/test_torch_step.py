@@ -15,77 +15,22 @@ that past 1e-4. So the divergence grid and the pressure solve are held
 to their tighter tolerances on the JAX run's own stage inputs: the
 params after its advection fit, and its divergence grid and chunk key.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, params_np, to_np
+from _torch_parity import JaxKey, chained_runs, params_np, to_np
 
-import nmcfluid.sim.fluid as jfluid
 import nmcfluid_torch.sim.fluid as tfluid
-from nmcfluid.scenes import get_scene as j_get_scene
 from nmcfluid_torch.scenes import get_scene as t_get_scene
 
 TINY = dict(sample_resolution=8, wost_resolution=16, div_resolution=16,
             n_walks=48, max_n_iters=20, fit_pool=4)
 
 
-def _record(monkeypatch, module, log, jax_side):
-    """Log each phase fit's output params and its ls_head branch (True
-    when the solved head replaced the Adam endpoint)."""
-    fits = {name: getattr(module, name)
-            for name in ("_fit_source", "_fit_advect", "_fit_project")}
-    for name, fn in fits.items():
-        def wrapped(*a, _fn=fn, _name=name, **kw):
-            params, stats = _fn(*a, **kw)
-            log["fits"].append((_name, params_np(params)))
-            return params, stats
-        monkeypatch.setattr(module, name, wrapped)
-    solve = module._ls_head_solve
-
-    def ls_wrapped(fluid, params, key, batch_fn):
-        out = solve(fluid, params, key, batch_fn)
-        if jax_side:
-            moved = jnp.any(out[-1][0] != params[-1][0])
-            jax.debug.callback(lambda m: log["branch"].append(bool(m)),
-                               moved)
-        else:
-            log["branch"].append(out[-1][0] is not params[-1][0])
-        return out
-    monkeypatch.setattr(module, "_ls_head_solve", ls_wrapped)
-    if jax_side:
-        solve_p = module._pressure_solve
-
-        def p_wrapped(fluid, wsc, source_args, key):
-            out = solve_p(fluid, wsc, source_args, key)
-            log["pressure"].append((np.asarray(source_args[0]), key,
-                                    [np.asarray(a) for a in out]))
-            return out
-        monkeypatch.setattr(module, "_pressure_solve", p_wrapped)
-
-
 @pytest.fixture(scope="module")
 def runs():
-    mp = pytest.MonkeyPatch()
-    logs = {"jax": {"fits": [], "branch": [], "pressure": []},
-            "torch": {"fits": [], "branch": []}}
-    try:
-        _record(mp, jfluid, logs["jax"], True)
-        _record(mp, tfluid, logs["torch"], False)
-        jf = jfluid.NeuralFluid(j_get_scene("taylorgreen"), fit_mode="fused",
-                                **TINY)
-        js = jf.add_source(jf.init_state(0))
-        js = jf.step(js)
-        jax.effects_barrier()
-        tf = tfluid.NeuralFluid(t_get_scene("taylorgreen"), device="cpu",
-                                **TINY)
-        ts = tf.add_source(tf.init_state(key=JaxKey.from_seed(0)))
-        ts = tf.step(ts)
-    finally:
-        mp.undo()
-    return jf, js, tf, ts, logs
+    return chained_runs("taylorgreen", TINY)
 
 
 def test_each_fit_matches(runs):
@@ -148,7 +93,13 @@ def test_final_state(runs):
                                   dict(projection="bem"),
                                   dict(fit_mode="xla"),
                                   dict(grad_clip=1.0),
-                                  dict(param_ema=0.99)])
+                                  dict(param_ema=0.99),
+                                  dict(scene="jpipe"),
+                                  dict(scene="smoke")])
 def test_unported_flags_raise(over):
-    with pytest.raises(NotImplementedError):
-        tfluid.NeuralFluid(t_get_scene("taylorgreen"), device="cpu", **over)
+    """Flags and scenes not ported yet raise, naming themselves."""
+    over = dict(over)
+    scene = over.pop("scene", "taylorgreen")
+    with pytest.raises(NotImplementedError,
+                       match=scene if scene != "taylorgreen" else ""):
+        tfluid.NeuralFluid(t_get_scene(scene), device="cpu", **over)

@@ -17,11 +17,15 @@ import torch
 from _torch_parity import JaxKey, to_np
 
 from nmcfluid.geometry.analytic2d import make_analytic2d as j_box
+from nmcfluid.scenes import get_scene as j_get_scene
 from nmcfluid.sim import sampling as j_sampling
 from nmcfluid.wost import WalkSettings as JSettings, WostScene as JScene
 from nmcfluid.wost.gen import estimate_solution_and_gradient_gen as j_gen
 
 from nmcfluid_torch.geometry.analytic2d import make_analytic2d as t_box
+from nmcfluid_torch.scenes import get_scene as t_get_scene
+from nmcfluid_torch.scenes.specs import (KARMAN_BBOX, KARMAN_OBS_C,
+                                         KARMAN_OBS_R)
 from nmcfluid_torch.sim import sampling as t_sampling
 from nmcfluid_torch.utils.keys import Key
 from nmcfluid_torch.wost.gen import estimate_solution_and_gradient_gen \
@@ -64,16 +68,55 @@ def _tg_grid(lib, grid):
                   absorption=350.0), (torch.from_numpy(grid),)
 
 
-@pytest.mark.parametrize("case", ["manufactured", "tg_grid"])
+def _karman_grid(lib, grid):
+    """The karman fluid's walk: the real channel boundary (open inlet and
+    outlet, the circle, the corner silhouette points), sigma = 350, and a
+    nearest-texel source from a divergence grid of the karman shape."""
+    if lib == "jax":
+        scene = j_get_scene("karman")
+        return JScene(dim=2, neumann=scene.boundary,
+                      source_fn=lambda y, g: j_sampling.nearest_lookup(
+                          g, scene.scene_size, y),
+                      absorption=350.0), (jnp.asarray(grid),)
+    scene = t_get_scene("karman")
+    return TScene(dim=2, neumann=scene.boundary,
+                  source_fn=lambda y, g: t_sampling.nearest_lookup(
+                      g, scene.scene_size, y),
+                  absorption=350.0), (torch.from_numpy(grid),)
+
+
+def _karman_points(rng, n):
+    """Fluid points: uniform in the channel, and on purpose near the
+    circle, the walls, the open inlet and outlet and a corner."""
+    x0, x1, y0, y1 = KARMAN_BBOX
+    (cx, cy), r = KARMAN_OBS_C, KARMAN_OBS_R
+    pts = np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], -1)
+    ang = rng.uniform(0, 2 * np.pi, 8)
+    rad = r + np.array([2e-3, 5e-3, 1e-2, 2e-2, 3e-3, 4e-2, 1.5e-3, 8e-3])
+    pts[:8] = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], -1)
+    pts[8:14] = [[0.0, y0 + 2e-3], [0.5, y1 - 5e-3], [x0 + 1e-2, 0.1],
+                 [x1 - 1e-2, -0.2], [x0 + 2e-2, y0 + 2e-2],
+                 [x1 - 3e-3, y1 - 4e-3]]
+    return pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["manufactured", "tg_grid", "karman"])
 def test_gen_matches_jax_gen(case):
     """n_walks = 48 > 2 * cv_warmup_pairs, so the frozen control variates
     engage. Same walk set => identical valid counts; p and grad at the
-    gen-vs-pool tolerances of tests/test_gen.py."""
+    gen-vs-pool tolerances of tests/test_gen.py. The karman case walks the
+    channel: walks escape through the open sides and reflect off the
+    circle."""
     rng = np.random.default_rng(0)
     if case == "manufactured":
         pts = PTS
         (js, jargs), (ts, targs) = (_manufactured("jax"), ()), \
             (_manufactured("torch"), ())
+    elif case == "karman":
+        pts = _karman_points(rng, 64)
+        grid = rng.normal(size=(1000, 399)).astype(np.float32)
+        js, jargs = _karman_grid("jax", grid)
+        ts, targs = _karman_grid("torch", grid)
     else:
         pts = rng.uniform(TG_LO, TG_HI, (64, 2)).astype(np.float32)
         pts[:4] = [[TG_LO + 1e-4, 3.0], [3.0, TG_HI - 5e-4], [0.01, 0.02],
@@ -87,6 +130,8 @@ def test_gen_matches_jax_gen(case):
     p_t, g_t, n_t = t_gen(ts, TSettings(algo="gen"), torch.from_numpy(pts),
                           JaxKey(key), 48, source_args=targs)
     np.testing.assert_array_equal(to_np(n_t), np.asarray(n_j))
+    if case == "karman":
+        assert (to_np(n_t) < 48).sum() > 10      # walks escaped
     np.testing.assert_allclose(to_np(p_t), np.asarray(p_j), rtol=2e-4,
                                atol=2e-5)
     np.testing.assert_allclose(to_np(g_t), np.asarray(g_j), rtol=2e-3,
