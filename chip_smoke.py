@@ -220,37 +220,55 @@ def _fit_bound(cfg, B):
 def _gather_bound(idx):
     """All four forms compute out[b] = table[idx[b]], so one bound: indices
     read and rows written once, and the table rows this run's indices
-    touch. (onehot's own 128 x 4 FMAs a lane are its form's cost, not the
+    touch. (What a form does beyond that, such as onehot's sort and its
+    reads of the whole table from L2, is the form's cost, not the
     function's.)"""
     return _bound(20 * idx.shape[0] + 16 * torch.unique(idx).numel(), 0)
 
 
+# the one-call PyTorch forms of out = table[idx] that the probe times
+LIBRARY_CALLS = {"torch": "torch.index_select(table, 0, idx)",
+                 "torch_rows": "table[idx]",
+                 "torch_lanes": "table.T[:, idx].T"}
+
+
 def gather_report(pp, probe, launches):
     """Kernel-report entries of the four gathers at n = GATHER_N[-1] on the
-    random table, all from the probe's runs: the kernel's time, its plain
-    version's, torch.index_select's, the largest error over every run, and
-    the bound from the run's indices."""
+    random table, all from the probe's runs but the relayout: the kernel's
+    time, its plain version's, the fastest one-call PyTorch form's (named
+    in `library_call`), the largest error over every run, and the bound
+    from the run's indices; onehot's entry adds the time of its table's
+    relayout, made once per table."""
     n = GATHER_N[-1]
     res = probe[("random", n)]
-    _, idx = pp.probe_inputs("random", n, "cuda")
+    table, idx = pp.probe_inputs("random", n, "cuda")
     bound_ms, bound_by = _gather_bound(idx)
+    lib = min(LIBRARY_CALLS, key=lambda f: res[f]["ms"])
+    relayout_ms = pp.marginal_ms(lambda k: [
+        pp._kernel_table(table, "onehot") for _ in range(k)])
     lines = {"rows": 38, "lanes": 44, "scalar": 52, "onehot": 59}
     out = []
     for variant in pp.VARIANTS:
+        ms = res[variant]["ms"]
         out.append({
             "name": f"gather_{variant}_k", "route": "cuda",
             "source": "nmcfluid_torch/csrc/gather.cu",
             "replaces": f"nmcfluid/wost/pallas_probe.py:{lines[variant]}",
             "launches": launches[variant],
             "max_abs_err": max(r[variant]["err"] for r in probe.values()),
-            "ms": res[variant]["ms"],
-            "plain_ms": res[pp.PLAIN[variant]]["ms"],
+            "ms": ms, "plain_ms": res[pp.PLAIN[variant]]["ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": res["torch"]["ms"], "n": n})
-        print(f"gather {variant}: {out[-1]['ms']:.5f} ms kernel, "
-              f"{out[-1]['plain_ms']:.5f} ms plain, "
-              f"{out[-1]['library_ms']:.5f} ms torch.index_select, bound "
-              f"{bound_ms:.5f} ms ({bound_by}) at n = {n}", flush=True)
+            "library_ms": res[lib]["ms"], "library_call": LIBRARY_CALLS[lib],
+            "n": n})
+        if variant == "onehot":
+            out[-1]["relayout_ms"] = relayout_ms
+        print(f"gather {variant}: {ms:.5f} ms kernel ({bound_ms / ms:.1%} "
+              f"of the bound {bound_ms:.5f} ms, {bound_by}), "
+              f"{out[-1]['plain_ms']:.5f} ms plain, {res[lib]['ms']:.5f} "
+              f"ms {LIBRARY_CALLS[lib]} (kernel {ms / res[lib]['ms']:.2f}x "
+              f"it) at n = {n}"
+              + (f"; the table's relayout {relayout_ms:.5f} ms, once a "
+                 f"table" if variant == "onehot" else ""), flush=True)
     return out
 
 

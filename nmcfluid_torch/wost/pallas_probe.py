@@ -15,13 +15,17 @@ forms the TPU tried, each a hand-written kernel in csrc/gather.cu:
   rows    one thread per row, one 16-byte load and store
   lanes   the gather along the lanes of the (4, R) transposed table,
           written (4, n) and returned transposed
-  scalar  one thread per 1024-index block copying its rows serially
-          (the worst case)
+  scalar  the TPU's loop of scalar slices over each 1024-index block, run
+          by a block of 256 threads: indices staged in shared memory, then
+          16 unrolled 4-byte loads a thread before its 16 stores
   onehot  the TPU's one-hot form on the (32512, 4) = (127, 256, 4) radial
-          table: a one-hot product over the 128 padded Z rows, then the
-          column 4 j0 + q of each quad (exact: one nonzero term). The
-          kernel reads that column by address, so unlike the TPU body it
-          is not gather-free.
+          table, on the tensor cores: a block takes a chunk of lanes and a
+          range of quad columns j0 = i % 256, sorts the chunk's lanes in
+          its range by j0, and each 16-lane tile multiplies the one-hot of
+          its Z rows i0 = i / 256 by the bytes of column j0 (u8 mma, s32
+          sums with one nonzero term), so it is exact for every bit
+          pattern. Its launch plan is `onehot_plan`; its table is the
+          padded table relaid once in B-fragment order (`_kernel_table`).
 
 On CUDA tensors it launches the kernel, or raises ValueError on what the
 kernel does not take; on CPU tensors it runs `reference_gather_rows`, the
@@ -36,6 +40,8 @@ marginal time; --profile adds each form's device kernels:
 """
 import argparse
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,10 +61,69 @@ _P = 4                       # floats per table row (one quad)
 _SOURCES = ("gather.cu",)
 _REPS = 50                   # launches per timed run, against 1
 _SPIN_CYCLES = 20_000_000    # ~10 ms device spin ahead of a timed run
+# the onehot kernel's constants (csrc/gather.cu)
+ONEHOT_L_MAX = 16384                       # lanes a chunk, most
+ONEHOT_RANGES = (4, 8, 16)                 # quad-column ranges a chunk
+ONEHOT_J = 256                             # quad columns
+SMEM_MAX = 232_448                         # a block's shared memory, H100
 
 # kernel launches per variant (each gather_rows call on CUDA tensors
 # launches one; a timed run of k repeats launches k)
 launches = dict.fromkeys(VARIANTS, 0)
+
+
+class OnehotPlan(NamedTuple):
+    """Launch plan of gather_onehot_k: `chunks` x `ranges` blocks of 512
+    threads. Block (c, r) takes the lanes [c * lanes,
+    min((c + 1) * lanes, n)) whose quad column j0 lies in [r * J, (r + 1)
+    * J), J = 256 / ranges, with `smem_bytes` of dynamic shared memory."""
+    n: int
+    lanes: int
+    ranges: int
+    chunks: int
+    ctas: int
+    smem_bytes: int
+
+
+def onehot_smem(lanes, ranges):
+    """Dynamic shared memory of a onehot block (csrc/gather.cu::onehot_smem):
+    4 bytes a lane of rows and 4 of sort keys, J + 1 bucket starts and J
+    counts."""
+    return 8 * lanes + (2 * (ONEHOT_J // ranges) + 1) * 4
+
+
+def onehot_plan(n, n_sm, lanes=None, ranges=None):
+    """The onehot launch plan for n lanes (a multiple of BLOCK) on a card
+    with n_sm SMs. Each block scans every lane of its chunk and multiplies
+    the ones of its 256 / ranges columns, so more ranges rescan each lane
+    more often, and a chunk of 8192 lanes gives a column 32 lanes, one full
+    pair of tiles on average. The plan takes chunks of 8192 lanes and 4
+    ranges; while that makes fewer than n_sm / 2 blocks, it halves the
+    chunk down to 4096 lanes, then doubles the ranges up to 16 (the best
+    of the chunk and range sweep on the H100 at n = 65,536 and 524,288,
+    PERF.md). `lanes` (a multiple of BLOCK in [BLOCK, ONEHOT_L_MAX]) and
+    `ranges` (one of ONEHOT_RANGES) force the choice."""
+    if n % BLOCK or n_sm < 1:
+        raise ValueError(f"onehot plan: n = {n}, n_sm = {n_sm}")
+    if lanes is not None and (lanes % BLOCK
+                              or not BLOCK <= lanes <= ONEHOT_L_MAX):
+        raise ValueError(f"onehot plan: lanes = {lanes}")
+    if ranges is not None and ranges not in ONEHOT_RANGES:
+        raise ValueError(f"onehot plan: ranges = {ranges}")
+    steps = [(Lc, nr) for Lc, nr in ((8192, 4), (4096, 4), (4096, 8),
+                                     (4096, 16))
+             if lanes in (None, Lc) and ranges in (None, nr)] \
+        or [(lanes or 8192, ranges or 4)]
+    for Lc, nr in steps:
+        chunks = -(-n // Lc)
+        if 2 * chunks * nr >= n_sm:
+            break
+    return OnehotPlan(n, Lc, nr, chunks, chunks * nr, onehot_smem(Lc, nr))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load_library() -> ctypes.CDLL:
@@ -66,7 +131,7 @@ def load_library() -> ctypes.CDLL:
     lib = cuda_build.load("gather", _SOURCES)
     if not getattr(lib, "_nmc_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.gather_run.argtypes = [I, P, P, P, I, I, I, P]
+        lib.gather_run.argtypes = [I, P, P, P, I, I, I, I, I, P]
         lib.gather_run.restype = I
         lib._nmc_typed = True
     return lib
@@ -99,14 +164,39 @@ def _check_inputs(table, idx, variant):
                              f"outside [0, {table.shape[0]})")
 
 
+def onehot_columns(table):
+    """The (32512, 4) table padded by one zero Z row to (128, 1024), as the
+    JAX wrapper's `tab`, and relaid j0-major: (256, 128, 4), whose element
+    (j0, z, q) is the padded element (z, 4 j0 + q), so that one quad
+    column is 2 KB contiguous."""
+    pad = F.pad(table.reshape(127, 1024), (0, 0, 0, 1))
+    return pad.reshape(128, ONEHOT_J, _P).transpose(0, 1).contiguous()
+
+
+def onehot_fragments(columns):
+    """The (256, 128, 4) columns in the order gather_onehot_k reads them:
+    int32 words (256 j0, 4 s, 32 lanes, 4 c), c = 2 h + half. Byte e of the
+    word of lane 4 g + t is byte 4 (g // 2) + 2 h + g % 2 of the quad on Z
+    row 32 s + 16 half + 4 t + e: the u8 B fragment (k row 16 half + 4 t +
+    e, column g) of mma.m16n8k32 for k-step s and n8 half h, with the
+    quad's bytes ordered so that lane (g, t) of the product holds bytes 4 t
+    .. 4 t + 3, float t, of its rows."""
+    b = columns.contiguous().view(torch.uint8).reshape(ONEHOT_J, 4, 2, 4, 4,
+                                                       4, 2, 2)
+    # (j0, s, half, t, e, g // 2, h, g % 2) -> (j0, s, g, t, h, half, e)
+    return b.permute(0, 1, 5, 7, 3, 6, 2, 4).contiguous().view(
+        torch.int32).reshape(ONEHOT_J, 4, 32, 4)
+
+
 def _kernel_table(table, variant):
     """The table in the layout the variant's kernel reads (as the JAX
     wrapper's `tab`): (R, 4), its (4, R) transpose, or the onehot form
-    padded by one zero Z row to (128, 1024)."""
+    padded to 128 Z rows, j0-major, in B-fragment order. The relayouts are
+    made once per table, outside a timed run's repeats."""
     if variant == "lanes":
         return table.T.contiguous()
     if variant == "onehot":
-        return F.pad(table.reshape(127, 1024), (0, 0, 0, 1)).contiguous()
+        return onehot_fragments(onehot_columns(table))
     return table.contiguous()
 
 
@@ -115,15 +205,20 @@ def _empty_out(table, n, variant):
     return torch.empty(shape, dtype=torch.float32, device=table.device)
 
 
-def _launch(variant, tab, idx, out, R, reps=1):
+def _launch(variant, tab, idx, out, R, reps=1, lanes=None, ranges=None):
     """`reps` kernel launches from one ctypes call, the r-th gathering rows
-    (idx + r) % R into `out`."""
+    (idx + r) % R into `out`; onehot runs `onehot_plan` (`lanes` and
+    `ranges` force its chunk and its column ranges)."""
     lib = load_library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    n = idx.shape[0]
+    if variant == "onehot":
+        plan = onehot_plan(n, _sm_count(idx.device), lanes, ranges)
+        lanes, ranges = plan.lanes, plan.ranges
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     with torch.cuda.device(idx.device):
         rc = lib.gather_run(VARIANTS.index(variant), ptr(tab), ptr(idx),
-                            ptr(out), idx.shape[0], R, reps,
+                            ptr(out), n, R, reps, lanes or 0, ranges or 0,
                             ctypes.c_void_p(stream))
     launches[variant] += reps
     if rc != 0:
@@ -134,7 +229,8 @@ def _launch(variant, tab, idx, out, R, reps=1):
 def gather_rows(table, idx, variant="rows"):
     """(R, 4) float32 table, (n,) int32 indices in [0, R) -> (n, 4) rows
     table[idx], through the variant's kernel on CUDA tensors and through
-    `reference_gather_rows` on CPU tensors."""
+    `reference_gather_rows` on CPU tensors. Every form moves the table's
+    bits unchanged, whatever their value (onehot's sums are of bytes)."""
     _check_inputs(table, idx, variant)
     if not table.is_cuda:
         return reference_gather_rows(table, idx, variant)
@@ -142,7 +238,10 @@ def gather_rows(table, idx, variant="rows"):
     tab = _kernel_table(table, variant)
     if tab.data_ptr() % 16:
         raise ValueError("gather_rows: the table's rows must be 16-byte "
-                         "aligned for the kernels' float4 loads")
+                         "aligned")
+    if variant in ("scalar", "onehot") and idx.data_ptr() % 16:
+        raise ValueError(f"gather_rows: {variant} loads its indices 16 "
+                         f"bytes at a time, so they must be 16-byte aligned")
     out = _empty_out(table, idx.shape[0], variant)
     _launch(variant, tab, idx, out, table.shape[0])
     return out.T if variant == "lanes" else out
@@ -262,6 +361,14 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="print each form's device kernels from one "
                          "torch.profiler window (cuda only)")
+    ap.add_argument("--onehot-lanes", type=int, default=None,
+                    help="lanes of a onehot chunk in the timed runs (a "
+                         "multiple of 1024 up to 16384; default: "
+                         "onehot_plan's choice)")
+    ap.add_argument("--onehot-ranges", type=int, default=None,
+                    choices=ONEHOT_RANGES,
+                    help="quad-column ranges of a onehot chunk in the "
+                         "timed runs (default: onehot_plan's choice)")
     args = ap.parse_args(argv)
     dev = get_device(args.device)
     timed = dev.type == "cuda"
@@ -289,7 +396,8 @@ def main(argv=None):
         out = _empty_out(table, args.n, variant)
 
         def run(k):
-            _launch(variant, tab, idx, out, R, reps=k)
+            _launch(variant, tab, idx, out, R, reps=k,
+                    lanes=args.onehot_lanes, ranges=args.onehot_ranges)
         # after timing, `out` holds the last repeat's rows
         last = lambda: out.T if variant == "lanes" else out
         return gather_rows(table, idx, variant), run, last
@@ -299,8 +407,10 @@ def main(argv=None):
         return torch.div(i, 256, rounding_mode="floor"), torch.remainder(
             i, 256)
 
-    # PyTorch baselines: the library gather (the bar to beat), the plain
-    # versions, and the walk's own draw table_quads[i0, j0]
+    # PyTorch baselines: the library gather, the plain versions (table[idx]
+    # and table.T[:, idx].T are one-call forms of the same function too; the
+    # fastest of the three is the bar to beat), and the walk's own draw
+    # table_quads[i0, j0], which needs (i0, j0) made first
     baselines = {
         "torch": (lambda i: torch.index_select(table, 0, i),),
         "torch_rows": (lambda i: reference_gather_rows(table, i, "rows"),),

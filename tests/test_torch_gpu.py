@@ -181,22 +181,85 @@ def _radial_table():
     return rt.pack_quads(rt.build_table(2)).reshape(-1, 4).astype(np.float32)
 
 
-def _gather_inputs(dev, kind, n=65536, seed=0):
-    """The (32512, 4) radial table or a random normal one, and n random
-    int32 rows."""
+def _extreme_table(rows=32512, seed=0):
+    """Random float32 bit patterns (nan and inf among them), with rows of
+    +-0.0, the smallest subnormal, 1 + 2^-23, +-3.4e38 and +-inf on the
+    first and last Z rows."""
     rng = np.random.default_rng(seed)
-    table = _radial_table() if kind == "radial" else \
-        rng.standard_normal(pp.ONEHOT_TABLE).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, (rows, 4), dtype=np.uint64).astype(
+        np.uint32)
+    special = np.array([0.0, -0.0, 1.4e-45, 1 + 2 ** -23, 3.4e38, -3.4e38,
+                        np.inf, -np.inf], np.float32).view(np.uint32)
+    bits[:2] = special.reshape(2, 4)
+    bits[-2:] = special[::-1].reshape(2, 4)
+    return bits.view(np.float32)
+
+
+def _gather_inputs(dev, kind, n=65536, seed=0):
+    """The (32512, 4) radial table, a random normal one or the extreme one,
+    and n random int32 rows."""
+    rng = np.random.default_rng(seed)
+    table = {"radial": _radial_table, "extreme": _extreme_table}.get(
+        kind, lambda: rng.standard_normal(pp.ONEHOT_TABLE).astype(
+            np.float32))()
     idx = rng.integers(0, table.shape[0], n).astype(np.int32)
     return torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
 
 
+def _edge_inputs(dev, case):
+    """(table, idx, reps) of one edge case; the kernel's last repeat must
+    give table[(idx + reps - 1) % R]."""
+    n = {"one_block": 1024, "three_blocks": 3 * 1024,
+         "ragged": 9 * 1024}.get(case, 65536)
+    table, idx = _gather_inputs(dev, "extreme" if case == "extreme"
+                                else "random", n, seed=7)
+    if case == "one_bucket":            # every lane on one quad column
+        idx.fill_(12345)
+    elif case == "end_rows":            # the first and last Z rows only
+        idx = torch.where(idx % 2 == 0, idx % 256, 126 * 256 + idx % 256)
+    elif case == "extreme":             # the special rows, every one
+        idx[:4] = torch.tensor([0, 1, 32510, 32511], device=dev)
+    return table, idx.contiguous(), 3 if case == "reps" else 1
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+_GATHER_CASES = ("probe", "one_block", "three_blocks", "ragged",
+                 "one_bucket", "end_rows", "reps", "extreme")
+
+
+@pytest.mark.parametrize("case", _GATHER_CASES)
 @pytest.mark.parametrize("variant", pp.VARIANTS)
-def test_gather_kernel_equals_plain_on_card(cuda, variant):
-    """Exact equality at the probe's n = 65,536 on both tables (a gather
-    moves values unchanged; onehot's sums have one nonzero term), one
-    launch counted per call, and inputs the kernel does not take raise
-    ValueError on the card with no launch counted."""
+def test_gather_kernel_equals_plain_on_card(cuda, variant, case):
+    """Bit-exact equality with table[idx] (a gather moves values unchanged;
+    onehot's u8 sums have one nonzero term), one launch counted per call.
+    "probe": the probe's n = 65,536 on both tables, against the plain
+    version too, and inputs the kernel does not take raise ValueError on
+    the card with no launch counted. The edge cases: n = 1024 (one block),
+    n = 3 * 1024 and 9 * 1024 (onehot's last chunk of 4096 lanes ragged),
+    every index the same (one onehot column holds every lane), only the
+    first and last Z rows, three repeats through `_launch` (offsets 0, 1,
+    2), and a table of +-0.0, a subnormal, 1 + 2^-23, +-3.4e38, +-inf and
+    random bit patterns (nan among them)."""
+    if case != "probe":
+        table, idx, reps = _edge_inputs(cuda, case)
+        R = table.shape[0]
+        want = table[(idx.long() + reps - 1) % R]
+        before = pp.launches[variant]
+        if reps == 1:
+            got = pp.gather_rows(table, idx, variant)
+        else:
+            out = pp._empty_out(table, idx.shape[0], variant)
+            pp._launch(variant, pp._kernel_table(table, variant), idx, out,
+                       R, reps=reps)
+            got = out.T if variant == "lanes" else out
+        torch.cuda.synchronize()
+        assert pp.launches[variant] == before + reps
+        assert got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+        return
     for kind in ("random", "radial"):
         table, idx = _gather_inputs(cuda, kind)
         before = pp.launches[variant]
@@ -214,6 +277,9 @@ def test_gather_kernel_equals_plain_on_card(cuda, variant):
            (table, -idx - 1)]
     if variant in ("rows", "scalar"):
         bad.append((misaligned, idx))
+    if variant in ("scalar", "onehot"):     # indices loaded 16 bytes at once
+        bad.append((table, torch.empty(idx.numel() + 4, dtype=torch.int32,
+                                       device=cuda)[1:-3].copy_(idx)))
     if variant == "onehot":
         bad.append((table[:1024].contiguous(), idx % 1024))
     before = pp.launches[variant]
