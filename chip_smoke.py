@@ -11,7 +11,10 @@
    generation's lanes), on a random table and on the radial table with
    the rows the walk's radius draw picks: each of the four kernels of
    csrc/gather.cu and each PyTorch baseline held exactly equal to
-   table[idx] and timed; checks that each kernel launched.
+   table[idx] and timed; checks that each kernel launched; prints rows'
+   launch, the launch plans of lanes and onehot and the copy yardstick (the
+   marginal time of out.copy_(src), one streaming pass of n 16-byte
+   rows) at each n.
 4. Holds the persistent phase-fit kernel against its plain PyTorch twin on
    the card at Taylor-Green shapes (6 x 64 SIREN, 4096-point batches,
    K = 8), checks that two calls agree bit for bit, and times it as the
@@ -246,6 +249,16 @@ def gather_report(pp, probe, launches):
     lib = min(LIBRARY_CALLS, key=lambda f: res[f]["ms"])
     relayout_ms = pp.marginal_ms(lambda k: [
         pp._kernel_table(table, "onehot") for _ in range(k)])
+    n_sm = pp._sm_count(idx.device)
+    for n_k in GATHER_N:
+        rows_blocks = -(-n_k // (pp.ROWS_G * pp.ROWS_NT))
+        print(f"gather plans at n = {n_k}: rows {rows_blocks} blocks of "
+              f"{pp.ROWS_NT} threads x {pp.ROWS_G} rows (fixed); "
+              f"{pp.lanes_plan(n_k, table.shape[0], n_sm)}; "
+              f"{pp.onehot_plan(n_k, n_sm)}; copy yardstick "
+              f"{probe[('random', n_k)]['copy']['ms']:.5f} ms (radial "
+              f"{probe[('radial', n_k)]['copy']['ms']:.5f}), "
+              f"out.copy_(src) of ({n_k}, 4) float32", flush=True)
     lines = {"rows": 38, "lanes": 44, "scalar": 52, "onehot": 59}
     out = []
     for variant in pp.VARIANTS:

@@ -6,12 +6,13 @@
 // quad-packed radial table (R = 32512 rows of 4 floats, 520 KB); on the card
 // they measure the rate of the walk's per-lane gather in the same four forms.
 //
-//   gather_rows_k    one thread per output row: one 16-byte (float4) load
-//                    from the table and one 16-byte store.
+//   gather_rows_k    one 16-byte (float4) load of a row from the table and
+//                    one 16-byte store, two rows a thread with both loads
+//                    in flight (see its own note below).
 //   gather_lanes_k   the table transposed to (4, R) and the output (4, n):
-//                    one thread per index b reads table_t[q][idx[b]] and
-//                    writes out_t[q][b], so the four stores of a warp are
-//                    coalesced along n.
+//                    a block stages one row of the transpose in shared
+//                    memory and gathers its lanes from there, stores
+//                    coalesced along n (see its own note below).
 //   gather_scalar_k  the TPU body's loop of scalar slices over one grid
 //                    step's 1024 indices, run by a block of 256 threads (see
 //                    its own note below).
@@ -22,8 +23,12 @@
 // What bounds them on the card: bytes. Each call reads n int32 indices and
 // writes n 16-byte rows; the table stays resident in the 50 MB L2, so HBM
 // sees at most its 520 KB once. At n = 524,288 that is 10.5 MB, 3.3 us at
-// 3.35 TB/s. rows and lanes are the simple designs and are measured in
-// chip_smoke.py and PERF.md, not designed for.
+// 3.35 TB/s. Each form adds its own traffic on top (a 32-byte L2 sector
+// for each random 16-byte row, a staged row a block, onehot's table
+// columns); the notes below say which, and PERF.md how far each gets.
+// The launch plans of lanes and onehot (block size, work a thread) are
+// Python: wost/pallas_probe.py::lanes_plan, onehot_plan; rows and scalar
+// have one fixed launch.
 //
 // Every kernel applies the probe's repeat offset, i = (idx[b] + offset) % R,
 // so that timed repeats read other rows, as the JAX probe's (idx + k) % R.
@@ -33,19 +38,16 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block (rows, lanes, scalar)
+constexpr int NT = 256;          // threads per scalar block
 constexpr int BLOCK = 1024;      // indices per TPU grid step
 constexpr int SCALAR_TRIPS = BLOCK * 4 / NT;   // scalar slices a thread
 constexpr int OH_NT = 512;       // threads per onehot block
 constexpr int OH_WARPS = OH_NT / 32;
 constexpr int OH_J = 256;        // quad columns j0 of the padded table
 constexpr int OH_L_MAX = 16384;  // most lanes in a onehot chunk
-
-__device__ __forceinline__ int row_of(const int* idx, int b, int offset,
-                                      int R) {
-  const int i = idx[b];
-  return offset == 0 ? i : (int)(((long long)i + offset) % R);
-}
+constexpr int ROWS_G = 2;        // rows a thread of a rows block
+constexpr int ROWS_NT = 128;     // threads per rows block
+constexpr int NT_MAX = 1024;     // threads of a lanes block, most
 
 // i + off wrapped into [0, R), for i in [0, R) and off = offset % R
 __device__ __forceinline__ int wrap(int i, unsigned off, int R) {
@@ -53,25 +55,116 @@ __device__ __forceinline__ int wrap(int i, unsigned off, int R) {
   return (int)(j >= (unsigned)R ? j - (unsigned)R : j);
 }
 
-__global__ void gather_rows_k(const float4* __restrict__ table,
-                              const int* __restrict__ idx,
-                              float4* __restrict__ out, int n, int R,
-                              int offset) {
-  const int b = blockIdx.x * NT + threadIdx.x;
-  if (b >= n) return;
-  out[b] = table[row_of(idx, b, offset, R)];
+__device__ __forceinline__ int4 wrap4(int4 v, unsigned off, int R) {
+  return make_int4(wrap(v.x, off, R), wrap(v.y, off, R), wrap(v.z, off, R),
+                   wrap(v.w, off, R));
 }
 
-__global__ void gather_lanes_k(const float* __restrict__ table_t,
-                               const int* __restrict__ idx,
-                               float* __restrict__ out_t, int n, int R,
-                               int offset) {
-  const int b = blockIdx.x * NT + threadIdx.x;
-  if (b >= n) return;
-  const int i = row_of(idx, b, offset, R);
+// gather_rows_k replaces _rows_kernel (pallas_probe.py:38-41): jnp.take of
+// a 1024-index step's rows from the table in VMEM. On the card the table
+// stays in L2 and a row is one 16-byte load, the form the walk kernel will
+// read the radius quad in. What bounds it: bytes, and each random row
+// costs a whole 32-byte L2 sector for its 16 bytes. The first port gave a
+// thread one row, so it had one load in flight, behind its index load and
+// a 64-bit modulo for the repeat offset. Here a block of ROWS_NT threads
+// takes ROWS_G rows a thread, row c G NT + k NT + t of block c, thread t
+// (k < G), so a warp's index loads are 128 contiguous bytes and its stores
+// 512; the offset wraps with a compare; both table loads go out through
+// the read-only path before the first store. Measured, the loads in flight
+// were not what held it: 1 to 16 rows a thread in blocks of 128 to 1024
+// threads ran within a few percent of each other at n = 524,288, at the
+// rate a streaming copy moves its L2 traffic (indices, a sector a row,
+// stores), and 2 rows in blocks of 128 ran best at 65,536 (PERF.md).
+__global__ void __launch_bounds__(ROWS_NT)
+gather_rows_k(const float4* __restrict__ table, const int* __restrict__ idx,
+              float4* __restrict__ out, int n, int R, int offset) {
+  const int b0 = blockIdx.x * ROWS_G * ROWS_NT + threadIdx.x;
+  const unsigned off = (unsigned)offset % (unsigned)R;
+  int i[ROWS_G];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    out_t[(long long)q * n + b] = table_t[(long long)q * R + i];
+  for (int k = 0; k < ROWS_G; ++k) {
+    const int b = b0 + k * ROWS_NT;
+    i[k] = b < n ? wrap(__ldg(idx + b), off, R) : 0;
+  }
+  float4 v[ROWS_G];
+#pragma unroll
+  for (int k = 0; k < ROWS_G; ++k) v[k] = __ldg(table + i[k]);
+#pragma unroll
+  for (int k = 0; k < ROWS_G; ++k)
+    if (b0 + k * ROWS_NT < n) out[b0 + k * ROWS_NT] = v[k];
+}
+
+// gather_lanes_k reads the transpose padded to (4, lanes_pitch(R)), so
+// that each of its rows starts on 16 bytes;
+// wost/pallas_probe.py::lanes_pitch mirrors it.
+__host__ __device__ constexpr int lanes_pitch(int R) { return (R + 3) & ~3; }
+
+// gather_lanes_k replaces _lanes_kernel (pallas_probe.py:44-49): the TPU
+// body held the whole (4, R) transpose in VMEM and gathered along its
+// lanes, out (4, n). The first port read table_t[q][i] from L2 for each q
+// of a lane: four 4-byte reads 127 KB apart, each its own 32-byte sector
+// (8 times the bytes the function needs: 67 MB of sectors at n =
+// 524,288), behind one dependent index load. One row of the transpose
+// fits a block's shared memory (130,048 bytes for the radial table), so a
+// block takes the VMEM's part for one q:
+// * block x owns row q = x % 4 and the chunk x / 4 of G nt lanes;
+// * each thread starts 16-byte cp.async copies of its pieces of the row
+//   (pieces t + u nt) into shared memory, then loads its lanes' indices 16
+//   bytes at a time (lanes base + 4 (j nt + t) .. + 3, j < G / 4) and
+//   wraps the offset while the row arrives; it waits for its copies, and
+//   one block barrier makes the whole row visible;
+// * each thread reads its lanes' values from shared memory and stores each
+//   group of four as a float4, so a warp's stores to row q of out are 512
+//   contiguous bytes.
+// L2 then serves each block's row once: ctas x 4 Rp bytes (16.6 MB at n =
+// 524,288 on 128 blocks), against 67 MB of sectors. What bounds it:
+// bytes, of the staged rows (a fixed cost a block, and at 130 KB of shared
+// memory one block fits an SM) and of indices and output. The row comes in
+// by cp.async, beside the index loads and through no registers; staged
+// through registers (16-byte loads, then shared stores) or by one bulk
+// async copy on an mbarrier (cp.async.bulk) it came slower, and clusters
+// sharing one bulk copy by multicast slower still; reading the four rows
+// from L2 with all of a thread's loads in flight, and no staging, ran 2.4
+// times as long (PERF.md). lanes_plan (wost/pallas_probe.py) picks G and
+// nt; the wrapper refuses a table whose row does not fit shared memory
+// (R > LANES_R_MAX there).
+template <int G>
+__global__ void __launch_bounds__(NT_MAX, 1)
+gather_lanes_k(const float* __restrict__ table_t,
+               const int* __restrict__ idx, float* __restrict__ out_t,
+               int n, int R, int offset) {
+  extern __shared__ float4 s_row4[];
+  const float* s_row = reinterpret_cast<const float*>(s_row4);
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int q = blockIdx.x & 3;
+  const int base = (blockIdx.x >> 2) * G * nt;
+  const int nv = lanes_pitch(R) / 4;           // 16-byte pieces of the row
+  const float4* row = reinterpret_cast<const float4*>(
+      table_t + (size_t)q * lanes_pitch(R));
+  const unsigned off = (unsigned)offset % (unsigned)R;
+  const unsigned s_base = (unsigned)__cvta_generic_to_shared(s_row4);
+  for (int i = t; i < nv; i += nt)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(s_base + 16 * i), "l"(row + i) : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  int4 v[G / 4];
+#pragma unroll
+  for (int j = 0; j < G / 4; ++j) {
+    const int b = base + 4 * (j * nt + t);
+    v[j] = b < n ? wrap4(__ldg(reinterpret_cast<const int4*>(idx + b)), off,
+                         R)
+                 : make_int4(0, 0, 0, 0);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  float* o = out_t + (size_t)q * n;
+#pragma unroll
+  for (int j = 0; j < G / 4; ++j) {
+    const int b = base + 4 * (j * nt + t);
+    if (b < n)
+      *reinterpret_cast<float4*>(o + b) = make_float4(
+          s_row[v[j].x], s_row[v[j].y], s_row[v[j].z], s_row[v[j].w]);
+  }
 }
 
 // gather_scalar_k replaces _scalar_kernel (pallas_probe.py:52-56): a
@@ -355,55 +448,89 @@ int onehot_run(const float* table, const int* idx, float* out, int n, int R,
   return 0;
 }
 
+// `reps` launches of `kernel` on `grid` blocks of `nt` threads, the r-th
+// with offset r; the first CUDA error, or 0
+template <typename In, typename Out>
+int run_reps(void (*kernel)(const In*, const int*, Out*, int, int, int),
+             int grid, int nt, unsigned smem, const float* table,
+             const int* idx, float* out, int n, int R, int reps,
+             cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int off = 0; off < reps; ++off) {
+    kernel<<<grid, nt, smem, stream>>>(reinterpret_cast<const In*>(table),
+                                       idx, reinterpret_cast<Out*>(out), n,
+                                       R, off);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+int lanes_run(const float* table, const int* idx, float* out, int n, int R,
+              int reps, int G, int nt, cudaStream_t stream) {
+  if (nt < 32 || nt > NT_MAX || nt % 32) return -1;
+  const int chunks = (n + G * nt - 1) / (G * nt);
+  const unsigned smem = 4u * (unsigned)lanes_pitch(R);
+  switch (G) {
+#define LANES_CASE(g)                                                      \
+    case g:                                                                \
+      return run_reps(gather_lanes_k<g>, 4 * chunks, nt, smem, table, idx, \
+                      out, n, R, reps, stream);
+    LANES_CASE(4) LANES_CASE(8) LANES_CASE(16) LANES_CASE(32)
+#undef LANES_CASE
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches `reps` gathers of one variant on `stream`, the r-th with offset
-// r (r = 0 .. reps - 1), all writing `out`. variant: 0 rows, 1
-// lanes, 2 scalar, 3 onehot. `table` is the (R, 4) table for rows and
-// scalar, its (4, R) transpose for lanes, and for onehot the padded (128,
-// 1024) table in B-fragment order, (256, 4, 32, 4) words (see
-// gather_onehot_k); `out` is (n, 4), or (4, n) for lanes. n is a multiple
-// of 1024, and `idx` 16-byte aligned for scalar and onehot. lanes and
-// ranges are the onehot plan's chunk (a multiple of 1024, at most 16,384)
-// and column ranges (4, 8 or 16); the other variants ignore them. Returns
-// the first CUDA error, or -1 for an unknown variant or plan.
+// r (r = 0 .. reps - 1), all writing `out`. variant: 0 rows, 1 lanes, 2
+// scalar, 3 onehot. `table` is the (R, 4) table for rows and scalar, its
+// (4, R) transpose padded to (4, lanes_pitch(R)) for lanes, and for onehot
+// the padded (128, 1024) table in B-fragment order, (256, 4, 32, 4) words
+// (see gather_onehot_k); `out` is (n, 4), or (4, n) for lanes. n is a
+// multiple of 1024, and `idx` 16-byte aligned for lanes, scalar and
+// onehot; for lanes, 4 lanes_pitch(R) bytes fit a block's shared memory.
+// plan_a and plan_b are the variant's launch plan: for lanes, lanes a
+// thread (4, 8, 16 or 32) and threads a block (a multiple of 32 up to
+// 1024); for onehot, the chunk's lanes (a multiple of 1024, at most
+// 16,384) and its column ranges (4, 8 or 16); rows and scalar ignore
+// them. Returns the first CUDA error, or -1 for an unknown variant or
+// plan.
 int gather_run(int variant, const float* table, const int* idx, float* out,
-               int n, int R, int reps, int lanes, int ranges,
+               int n, int R, int reps, int plan_a, int plan_b,
                cudaStream_t stream) {
   if (variant == 3) {
-    if (lanes < BLOCK || lanes > OH_L_MAX || lanes % BLOCK) return -1;
-    switch (ranges) {
-      case 4: return onehot_run<4>(table, idx, out, n, R, reps, lanes, stream);
-      case 8: return onehot_run<2>(table, idx, out, n, R, reps, lanes, stream);
+    if (plan_a < BLOCK || plan_a > OH_L_MAX || plan_a % BLOCK) return -1;
+    switch (plan_b) {
+      case 4:
+        return onehot_run<4>(table, idx, out, n, R, reps, plan_a, stream);
+      case 8:
+        return onehot_run<2>(table, idx, out, n, R, reps, plan_a, stream);
       case 16:
-        return onehot_run<1>(table, idx, out, n, R, reps, lanes, stream);
+        return onehot_run<1>(table, idx, out, n, R, reps, plan_a, stream);
       default: return -1;
     }
   }
-  const int grid = (n + NT - 1) / NT;
-  for (int off = 0; off < reps; ++off) {
-    switch (variant) {
-      case 0:
-        gather_rows_k<<<grid, NT, 0, stream>>>(
-            reinterpret_cast<const float4*>(table), idx,
-            reinterpret_cast<float4*>(out), n, R, off);
-        break;
-      case 1:
-        gather_lanes_k<<<grid, NT, 0, stream>>>(table, idx, out, n, R, off);
-        break;
-      case 2:
-        gather_scalar_k<<<n / BLOCK, NT, 0, stream>>>(table, idx, out, n, R,
-                                                      off);
-        break;
-      default:
-        return -1;
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  switch (variant) {
+    case 0:
+      return run_reps(gather_rows_k, (n + ROWS_G * ROWS_NT - 1) /
+                      (ROWS_G * ROWS_NT), ROWS_NT, 0, table, idx, out, n, R,
+                      reps, stream);
+    case 1:
+      return lanes_run(table, idx, out, n, R, reps, plan_a, plan_b, stream);
+    case 2:
+      return run_reps(gather_scalar_k, n / BLOCK, NT, 0, table, idx, out, n,
+                      R, reps, stream);
+    default: return -1;
   }
-  return 0;
 }
 
 }  // extern "C"

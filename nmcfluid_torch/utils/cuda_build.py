@@ -71,6 +71,23 @@ def build_log(name: str, sources) -> str:
         return f.read()
 
 
+def load_source(name: str, src: str) -> ctypes.CDLL:
+    """Build (once per content) and load a library from CUDA source text,
+    for the probes that time edited copies of a csrc/ file."""
+    tag = hashlib.sha256((" ".join(NVCC_FLAGS) + src).encode()).hexdigest()
+    base = os.path.join(BUILD_DIR, f"{name}_{tag[:16]}")
+    if not os.path.exists(base + ".so"):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(base + ".cu", "w") as f:
+            f.write(src)
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", base + ".so",
+                              base + ".cu"], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n"
+                               f"{res.stderr}")
+    return ctypes.CDLL(base + ".so")
+
+
 def load(name: str, sources) -> ctypes.CDLL:
     """The ctypes handle of the built library (built on first use)."""
     lib = _loaded.get(name)

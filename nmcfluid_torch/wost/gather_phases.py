@@ -18,9 +18,7 @@ The copy is built with cuda_build's flags into nmcfluid_torch/_build/.
 """
 import argparse
 import ctypes
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 import torch
@@ -69,19 +67,7 @@ def stamped_source(variant=None):
 
 
 def load(variant=None):
-    src = stamped_source(variant)
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    base = os.path.join(cuda_build.BUILD_DIR, f"gather_phases_{tag}")
-    if not os.path.exists(base + ".so"):
-        with open(base + ".cu", "w") as f:
-            f.write(src)
-        res = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-                              "-o", base + ".so", base + ".cu"],
-                             capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    lib = ctypes.CDLL(base + ".so")
+    lib = cuda_build.load_source("gather_phases", stamped_source(variant))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gather_run.argtypes = [I, P, P, P, I, I, I, I, I, P]
     lib.set_stamps.argtypes = [P]

@@ -12,9 +12,13 @@ in ops/radial_tables.py, the nearest-texel source in sim/sampling.py).
 float32 (R, 4) table and int32 indices, n a multiple of BLOCK, in the four
 forms the TPU tried, each a hand-written kernel in csrc/gather.cu:
 
-  rows    one thread per row, one 16-byte load and store
+  rows    one 16-byte load and store a row, ROWS_G rows a thread with
+          both loads in flight, blocks of ROWS_NT threads
   lanes   the gather along the lanes of the (4, R) transposed table,
-          written (4, n) and returned transposed
+          written (4, n) and returned transposed: a block stages one row
+          of the transpose in shared memory and gathers its chunk of
+          lanes from there (launch plan `lanes_plan`); a table of more
+          than LANES_R_MAX rows, whose row does not fit, is refused
   scalar  the TPU's loop of scalar slices over each 1024-index block, run
           by a block of 256 threads: indices staged in shared memory, then
           16 unrolled 4-byte loads a thread before its 16 stores
@@ -32,7 +36,10 @@ kernel does not take; on CPU tensors it runs `reference_gather_rows`, the
 plain PyTorch version. The entry point runs every form and the PyTorch
 baselines (torch.index_select, each plain version, and the walk's own draw
 table_quads[i0, j0]), checks each against table[idx] and prints its
-marginal time; --profile adds each form's device kernels:
+marginal time, each plan, and the marginal time of `out.copy_(src)` for
+an (n, 4) float32 `src`, one streaming pass of n 16-byte rows by the same
+method (a yardstick, not a gather); --profile adds each form's device
+kernels:
 
     python -m nmcfluid_torch.wost.pallas_probe                 # on the card
     python -m nmcfluid_torch.wost.pallas_probe --table radial --n 524288
@@ -66,10 +73,69 @@ ONEHOT_L_MAX = 16384                       # lanes a chunk, most
 ONEHOT_RANGES = (4, 8, 16)                 # quad-column ranges a chunk
 ONEHOT_J = 256                             # quad columns
 SMEM_MAX = 232_448                         # a block's shared memory, H100
+# the rows kernel's launch and the lanes kernel's instances (csrc/gather.cu)
+ROWS_G = 2                                 # rows a thread
+ROWS_NT = 128                              # threads a block
+NT_MAX = 1024                              # threads a lanes block, most
+LANES_PER_THREAD = (4, 8, 16, 32)          # gather_lanes_k<G>
+# the longest table whose transposed row a lanes block can stage
+LANES_R_MAX = SMEM_MAX // 16 * 4           # 58,112
 
 # kernel launches per variant (each gather_rows call on CUDA tensors
 # launches one; a timed run of k repeats launches k)
 launches = dict.fromkeys(VARIANTS, 0)
+
+
+class LanesPlan(NamedTuple):
+    """Launch plan of gather_lanes_k on a transposed table of R rows:
+    `chunks` chunks of per_thread * threads lanes, `ctas` = 4 chunks
+    blocks of `threads` threads, block x taking row q = x % 4 of chunk x /
+    4 from its copy of the row in `smem_bytes` of dynamic shared memory.
+    Thread t of chunk c takes lanes c * per_thread * threads + 4 (j *
+    threads + t) + e, e < 4, j < per_thread / 4, those below n."""
+    n: int
+    R: int
+    per_thread: int
+    threads: int
+    chunks: int
+    ctas: int
+    smem_bytes: int
+
+
+def lanes_pitch(R):
+    """Row pitch of the padded transpose the lanes kernel reads
+    (csrc/gather.cu::lanes_pitch): R rounded up to a multiple of 4, so
+    that each row starts on 16 bytes."""
+    return -(-R // 4) * 4
+
+
+def lanes_plan(n, R, n_sm, per_thread=None, threads=None):
+    """The lanes launch plan for n lanes (a multiple of BLOCK) and a table
+    of R <= LANES_R_MAX rows, whose transposed row fits a block's shared
+    memory, on a card with n_sm SMs: blocks of 512 threads, one an SM for
+    their 4 R bytes of shared memory, each thread the fewest lanes of
+    LANES_PER_THREAD that keep the blocks within one wave, else the most
+    (the best of the sweep on the H100 at n = 65,536 and 524,288,
+    PERF.md). `per_thread` (one of LANES_PER_THREAD) and `threads` (a
+    multiple of 32 up to NT_MAX) force the choice."""
+    if n % BLOCK or n_sm < 1 or R < 1:
+        raise ValueError(f"lanes plan: n = {n}, R = {R}, n_sm = {n_sm}")
+    if R > LANES_R_MAX:
+        raise ValueError(f"lanes plan: a transposed row of R = {R} floats "
+                         f"does not fit a block's shared memory (R <= "
+                         f"{LANES_R_MAX})")
+    if per_thread is not None and per_thread not in LANES_PER_THREAD:
+        raise ValueError(f"lanes plan: per_thread = {per_thread}")
+    if threads is not None and (threads % 32 or not 32 <= threads <= NT_MAX):
+        raise ValueError(f"lanes plan: threads = {threads}")
+    threads = threads or 512
+    if per_thread is None:
+        per_thread = next((g for g in LANES_PER_THREAD
+                           if 4 * -(-n // (g * threads)) <= n_sm),
+                          LANES_PER_THREAD[-1])
+    chunks = -(-n // (per_thread * threads))
+    return LanesPlan(n, R, per_thread, threads, chunks, 4 * chunks,
+                     4 * lanes_pitch(R))
 
 
 class OnehotPlan(NamedTuple):
@@ -154,6 +220,10 @@ def _check_inputs(table, idx, variant):
     if variant == "onehot" and tuple(table.shape) != ONEHOT_TABLE:
         raise ValueError(f"gather_rows: onehot needs the {ONEHOT_TABLE} "
                          f"radial table, got {tuple(table.shape)}")
+    if variant == "lanes" and table.shape[0] > LANES_R_MAX:
+        raise ValueError(f"gather_rows: lanes stages a transposed row in "
+                         f"shared memory, so it takes at most {LANES_R_MAX} "
+                         f"rows, got {table.shape[0]}")
     if table.device != idx.device:
         raise ValueError(f"gather_rows: table on {table.device}, indices "
                          f"on {idx.device}")
@@ -190,11 +260,13 @@ def onehot_fragments(columns):
 
 def _kernel_table(table, variant):
     """The table in the layout the variant's kernel reads (as the JAX
-    wrapper's `tab`): (R, 4), its (4, R) transpose, or the onehot form
-    padded to 128 Z rows, j0-major, in B-fragment order. The relayouts are
-    made once per table, outside a timed run's repeats."""
+    wrapper's `tab`): (R, 4), its (4, R) transpose padded with zeros to
+    (4, lanes_pitch(R)), or the onehot form padded to 128 Z rows,
+    j0-major, in B-fragment order. The relayouts are made once per table,
+    outside a timed run's repeats."""
     if variant == "lanes":
-        return table.T.contiguous()
+        R = table.shape[0]
+        return F.pad(table.T, (0, lanes_pitch(R) - R)).contiguous()
     if variant == "onehot":
         return onehot_fragments(onehot_columns(table))
     return table.contiguous()
@@ -205,21 +277,38 @@ def _empty_out(table, n, variant):
     return torch.empty(shape, dtype=torch.float32, device=table.device)
 
 
-def _launch(variant, tab, idx, out, R, reps=1, lanes=None, ranges=None):
+def plan_for(variant, n, R, n_sm):
+    """The variant's launch plan: lanes_plan or onehot_plan's choice, None
+    for rows and scalar, which have one fixed launch."""
+    if variant == "lanes":
+        return lanes_plan(n, R, n_sm)
+    if variant == "onehot":
+        return onehot_plan(n, n_sm)
+    return None
+
+
+def run_args(variant, plan):
+    """gather_run's variant code and two plan arguments for `plan`."""
+    if variant == "onehot":
+        return 3, plan.lanes, plan.ranges
+    if variant == "lanes":
+        return 1, plan.per_thread, plan.threads
+    return VARIANTS.index(variant), 0, 0
+
+
+def _launch(variant, tab, idx, out, R, reps=1, plan=None):
     """`reps` kernel launches from one ctypes call, the r-th gathering rows
-    (idx + r) % R into `out`; onehot runs `onehot_plan` (`lanes` and
-    `ranges` force its chunk and its column ranges)."""
+    (idx + r) % R into `out`, at `plan` (default: `plan_for`'s)."""
     lib = load_library()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     n = idx.shape[0]
-    if variant == "onehot":
-        plan = onehot_plan(n, _sm_count(idx.device), lanes, ranges)
-        lanes, ranges = plan.lanes, plan.ranges
+    if plan is None:
+        plan = plan_for(variant, n, R, _sm_count(idx.device))
+    code, a, b = run_args(variant, plan)
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     with torch.cuda.device(idx.device):
-        rc = lib.gather_run(VARIANTS.index(variant), ptr(tab), ptr(idx),
-                            ptr(out), n, R, reps, lanes or 0, ranges or 0,
-                            ctypes.c_void_p(stream))
+        rc = lib.gather_run(code, ptr(tab), ptr(idx), ptr(out), n, R, reps,
+                            a, b, ctypes.c_void_p(stream))
     launches[variant] += reps
     if rc != 0:
         raise RuntimeError(f"gather kernel {variant!r} launch failed: CUDA "
@@ -239,7 +328,7 @@ def gather_rows(table, idx, variant="rows"):
     if tab.data_ptr() % 16:
         raise ValueError("gather_rows: the table's rows must be 16-byte "
                          "aligned")
-    if variant in ("scalar", "onehot") and idx.data_ptr() % 16:
+    if variant in ("lanes", "scalar", "onehot") and idx.data_ptr() % 16:
         raise ValueError(f"gather_rows: {variant} loads its indices 16 "
                          f"bytes at a time, so they must be 16-byte aligned")
     out = _empty_out(table, idx.shape[0], variant)
@@ -343,10 +432,27 @@ def _err(got, want):
     return float((got - want).abs().max()) if want.numel() else 0.0
 
 
+def copy_yardstick(n, device):
+    """Marginal time of out.copy_(src) for an (n, 4) float32 src, as
+    {"ok", "ms", "err"}: what one streaming pass of n 16-byte rows (read
+    once, written once) costs at this n by the method that times the
+    gathers. The port never calls it."""
+    src = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n, _P)).astype(np.float32)).to(device)
+    out = torch.empty_like(src)
+
+    def run(k):
+        for _ in range(k):
+            out.copy_(src)
+    ms = marginal_ms(run)
+    return {"ok": torch.equal(out, src), "ms": ms, "err": _err(out, src)}
+
+
 def main(argv=None):
     """Run every form, check it against table[idx], and time it on the card.
     Returns {form: {"ok": bool, "ms": marginal ms/op or None, "err": max
-    |form - table[idx]|}}."""
+    |form - table[idx]|}}, and on the card "copy", the streaming-pass
+    yardstick (`copy_yardstick`)."""
     ap = argparse.ArgumentParser(
         prog="python -m nmcfluid_torch.wost.pallas_probe")
     ap.add_argument("--device", default="cuda",
@@ -379,6 +485,8 @@ def main(argv=None):
     R = table.shape[0]
     want = reference_gather_rows(table, idx, "rows")
     onehot_ok = (R, _P) == ONEHOT_TABLE
+    # each timed kernel's launch plan (None: a fixed launch)
+    plans = {}
     # the repeat k of a timed run gathers (idx + k) % R, as the JAX rep(k)
     shifted = [torch.remainder(idx + k, R) for k in range(_REPS)] \
         if timed else []
@@ -394,10 +502,13 @@ def main(argv=None):
     def kernel(variant):
         tab = _kernel_table(table, variant)
         out = _empty_out(table, args.n, variant)
+        plan = plans[variant] = onehot_plan(
+            args.n, _sm_count(dev), args.onehot_lanes, args.onehot_ranges) \
+            if variant == "onehot" else plan_for(variant, args.n, R,
+                                                 _sm_count(dev))
 
         def run(k):
-            _launch(variant, tab, idx, out, R, reps=k,
-                    lanes=args.onehot_lanes, ranges=args.onehot_ranges)
+            _launch(variant, tab, idx, out, R, reps=k, plan=plan)
         # after timing, `out` holds the last repeat's rows
         last = lambda: out.T if variant == "lanes" else out
         return gather_rows(table, idx, variant), run, last
@@ -424,6 +535,9 @@ def main(argv=None):
                 and not onehot_ok:
             print(f"{form:12s}: not run (needs --rows {ONEHOT_TABLE[0]})")
             continue
+        if form == "lanes" and R > LANES_R_MAX:
+            print(f"{form:12s}: not run (needs --rows <= {LANES_R_MAX})")
+            continue
         if form in baselines:
             got, run, last = baseline(*baselines[form])
         elif timed:
@@ -447,6 +561,15 @@ def main(argv=None):
                      f"({args.n * 16 / max(ms * 1e-3, 1e-12) / 1e9:.1f} "
                      f"GB/s payload)")
         print(line, flush=True)
+    if timed:
+        for variant, plan in plans.items():
+            if plan is not None:
+                print(f"plan {variant:7s}: {plan}", flush=True)
+        results["copy"] = copy_yardstick(args.n, dev)
+        print(f"copy        : marginal {results['copy']['ms']:9.5f} ms/op for "
+              f"out.copy_(src), ({args.n}, 4) float32: one streaming pass "
+              f"of {args.n} 16-byte rows (a yardstick, not a gather)",
+              flush=True)
     for form, kernels in profiles.items():
         for name, us in kernels:
             print(f"profile {form:12s}: {us:10.3f} us/call  {name[:100]}")

@@ -277,7 +277,7 @@ def test_gather_kernel_equals_plain_on_card(cuda, variant, case):
            (table, -idx - 1)]
     if variant in ("rows", "scalar"):
         bad.append((misaligned, idx))
-    if variant in ("scalar", "onehot"):     # indices loaded 16 bytes at once
+    if variant in ("lanes", "scalar", "onehot"):  # 16-byte index loads
         bad.append((table, torch.empty(idx.numel() + 4, dtype=torch.int32,
                                        device=cuda)[1:-3].copy_(idx)))
     if variant == "onehot":
@@ -287,3 +287,55 @@ def test_gather_kernel_equals_plain_on_card(cuda, variant, case):
         with pytest.raises(ValueError):
             pp.gather_rows(t, i, variant)
     assert pp.launches[variant] == before
+
+
+# every lanes plan the sweep on the card chose among (PERF.md), forced
+_FORCED_PLANS = [dict(per_thread=g, threads=t) for g in pp.LANES_PER_THREAD
+                 for t in (512, 1024)]
+
+
+@pytest.mark.parametrize("n", [9 * 1024, 65536])
+@pytest.mark.parametrize("force", _FORCED_PLANS,
+                         ids=lambda f: f"{f['per_thread']}x{f['threads']}")
+def test_gather_forced_plan_on_card(cuda, force, n):
+    """Each forced lanes plan, bit for bit on the extreme-value table over
+    three repeats (offsets 0, 1, 2; the special rows and the last row,
+    which the offsets wrap, indexed), one launch counted per repeat; n =
+    9 * 1024 leaves the last chunk of most plans ragged."""
+    table, idx = _gather_inputs(cuda, "extreme", n, seed=11)
+    R = table.shape[0]
+    idx[:5] = torch.tensor([0, 1, 32510, 32511, R - 1], device=cuda)
+    out = pp._empty_out(table, n, "lanes")
+    before = pp.launches["lanes"]
+    pp._launch("lanes", pp._kernel_table(table, "lanes"), idx, out, R,
+               reps=3, plan=pp.lanes_plan(n, R, pp._sm_count(cuda), **force))
+    torch.cuda.synchronize()
+    assert pp.launches["lanes"] == before + 3
+    assert torch.equal(_bits(out.T), _bits(table[(idx.long() + 2) % R]))
+
+
+@pytest.mark.parametrize("rows", [pp.LANES_R_MAX, pp.LANES_R_MAX + 1,
+                                  70001])
+def test_lanes_table_past_the_staging_limit_on_card(cuda, rows):
+    """A table whose transposed row fills a block's shared memory is
+    staged, bit for bit; one row longer (or an R that is not a multiple of
+    4, whose transpose is padded) raises ValueError with no launch
+    counted, while rows takes it."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal((rows, 4)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, rows, 65536).astype(
+        np.int32)).to(cuda)
+    idx[0] = rows - 1
+    before = pp.launches["lanes"]
+    if rows <= pp.LANES_R_MAX:
+        got = pp.gather_rows(table, idx, "lanes")
+        torch.cuda.synchronize()
+        assert pp.launches["lanes"] == before + 1
+        assert torch.equal(got, table[idx.long()])
+    else:
+        with pytest.raises(ValueError):
+            pp.gather_rows(table, idx, "lanes")
+        assert pp.launches["lanes"] == before
+        assert torch.equal(pp.gather_rows(table, idx, "rows"),
+                           table[idx.long()])

@@ -17,6 +17,7 @@ from _torch_parity import to_np
 from nmcfluid.wost import pallas_probe as j_pp
 
 from nmcfluid_torch.ops import radial_tables as t_rt
+from nmcfluid_torch.wost import gather_variants as t_gv
 from nmcfluid_torch.wost import pallas_probe as t_pp
 
 N = 2048
@@ -81,7 +82,8 @@ def test_rows_gather_is_the_radius_draw_quad():
 
 @pytest.mark.parametrize("case", ["n_not_a_multiple", "onehot_wrong_table",
                                   "int64_indices", "float64_table",
-                                  "index_out_of_range"])
+                                  "index_out_of_range",
+                                  "lanes_past_the_staging_limit"])
 def test_gather_rejects_what_the_kernel_does_not_take(case):
     """The kernel's contract holds on both devices: ValueError, on the CPU
     too, where the plain version alone could have run."""
@@ -95,6 +97,9 @@ def test_gather_rejects_what_the_kernel_does_not_take(case):
         idx = idx.long()
     elif case == "index_out_of_range":
         idx[7] = table.shape[0]
+    elif case == "lanes_past_the_staging_limit":
+        table = torch.zeros(t_pp.LANES_R_MAX + 1, 4)
+        variant = "lanes"
     else:
         table = table.double()
     with pytest.raises(ValueError):
@@ -219,6 +224,13 @@ def test_onehot_relayout():
     assert np.array_equal(got, cb[j0, 32 * s + 16 * half + 4 * t + e,
                                   4 * (g // 2) + 2 * h + g % 2])
     assert torch.equal(t_pp._kernel_table(table, "onehot"), frag)
+
+
+@pytest.mark.parametrize("name", sorted(t_gv.VARIANTS))
+def test_gather_variants_edit_the_kernel(name):
+    """Each cut copy of csrc/gather.cu that wost/gather_variants.py times
+    finds every text it edits there once."""
+    assert t_gv.variant_source(name) != t_gv.variant_source(None)
 
 
 @pytest.mark.parametrize("variant", [None, "one_kstep", "no_store"])
@@ -350,3 +362,238 @@ def test_onehot_mma_emulation_is_exact(kind, lanes, ranges, offset):
     assert (hits == 4).all()
     want = table.view(np.uint32)[(idx.astype(np.int64) + offset) % R]
     assert np.array_equal(got, want)
+
+
+
+
+# ---- the rows and lanes kernels' launches and thread mappings, on the CPU
+
+_CU = None
+
+
+def _gather_cu():
+    global _CU
+    if _CU is None:
+        from nmcfluid_torch.utils import cuda_build
+        with open(f"{cuda_build.CSRC}/gather.cu") as f:
+            _CU = f.read()
+    return _CU
+
+
+def test_rows_and_lanes_constants_match_the_kernel():
+    """The Python mirrors of csrc/gather.cu: the rows kernel's fixed
+    launch, the lanes block size limit, the lanes instances gather_run
+    dispatches, the row pitch."""
+    import re
+    src = _gather_cu()
+    assert f"constexpr int ROWS_G = {t_pp.ROWS_G};" in src
+    assert f"constexpr int ROWS_NT = {t_pp.ROWS_NT};" in src
+    assert f"constexpr int NT_MAX = {t_pp.NT_MAX};" in src
+    got = tuple(int(g) for g in re.findall(r"\bLANES_CASE\((\d+)\)", src))
+    assert got == t_pp.LANES_PER_THREAD
+    assert "return (R + 3) & ~3;" in src
+    for R in (1, 3, 4, 5, 32512, 58109):
+        assert t_pp.lanes_pitch(R) == (R + 3) & ~3
+
+
+def _wrap(i, offset, R):
+    """csrc/gather.cu::wrap with off = offset % R, in uint32 arithmetic."""
+    j = i.astype(np.uint32) + np.uint32(offset % R)
+    return np.where(j >= R, j - np.uint32(R), j).astype(np.int64)
+
+
+def _emulate_rows(table, idx, offset):
+    """gather_rows_k's launch: ceil(n / (G NT)) blocks of NT = ROWS_NT
+    threads; thread t of block c, k < G = ROWS_G, takes row b = c G NT + k
+    NT + t if b < n and stores table[wrap(idx[b])] at b. Returns the (n, 4)
+    bits and the stores each row got."""
+    n, G, nt = idx.shape[0], t_pp.ROWS_G, t_pp.ROWS_NT
+    c, k, t = np.meshgrid(np.arange(-(-n // (G * nt))), np.arange(G),
+                          np.arange(nt), indexing="ij")
+    b = (c * G * nt + k * nt + t).ravel()
+    b = b[b < n]
+    out = np.zeros((n, 4), np.uint32)
+    out[b] = table.view(np.uint32)[_wrap(idx[b], offset, table.shape[0])]
+    return out, np.bincount(b, minlength=n)
+
+
+def _emulate_lanes(table, idx, offset, plan):
+    """gather_lanes_k at `plan`, on the padded transpose: block x takes row
+    q = x % 4 of chunk x / 4 from its copy of the row, lanes b + e, b =
+    base + 4 (j nt + t), e < 4, j < G / 4, below n; thread t copies the
+    row's 16-byte pieces t + u nt. Returns the (4, n) bits and the stores
+    each element got."""
+    n, G, nt, R = plan.n, plan.per_thread, plan.threads, plan.R
+    tab = t_pp._kernel_table(torch.from_numpy(table), "lanes").numpy()
+    Rp = t_pp.lanes_pitch(R)
+    assert tab.shape == (4, Rp)
+    x = np.arange(plan.ctas)
+    q_of, c_of = x % 4, x // 4
+    nv = Rp // 4
+    u = np.arange(-(-nv // nt))
+    pieces = (np.arange(nt)[:, None] + nt * u).ravel()
+    assert (np.bincount(pieces[pieces < nv], minlength=nv) == 1).all()
+    assert plan.smem_bytes == 16 * nv
+    xs, j, t, e = np.meshgrid(x, np.arange(G // 4), np.arange(nt),
+                              np.arange(4), indexing="ij")
+    b = (c_of[xs] * G * nt + 4 * (j * nt + t)).ravel()
+    lane = b + e.ravel()
+    q = q_of[xs].ravel()
+    keep = b < n
+    lane, q = lane[keep], q[keep]
+    out = np.zeros((4, n), np.uint32)
+    out[q, lane] = tab.view(np.uint32)[q, _wrap(idx[lane], offset, R)]
+    return out, np.bincount(q * n + lane, minlength=4 * n).reshape(4, n)
+
+
+_MAP_N = [1024, 3 * 1024, 9 * 1024, 65536, 524288]
+# the radial table's rows, and a table the lanes transpose pads (1003 -> 1004)
+_MAP_R = [32512, 1003]
+_MAP_OFF = ["0", "1", "R-1"]
+
+
+def _map_inputs(R, n, off):
+    table = _extreme_table(R)
+    idx = np.random.default_rng(n).integers(0, R, n).astype(np.int32)
+    idx[:2] = [0, R - 1]
+    return table, idx, {"0": 0, "1": 1, "R-1": R - 1}[off]
+
+
+@pytest.mark.parametrize("off", _MAP_OFF)
+@pytest.mark.parametrize("n", _MAP_N)
+@pytest.mark.parametrize("R", _MAP_R)
+def test_rows_kernel_mapping_stores_each_row_once(R, n, off):
+    """The rows kernel's fixed launch stores every row once, with
+    table[(idx + offset) % R], bit for bit (an extreme-value table)."""
+    table, idx, offset = _map_inputs(R, n, off)
+    got, hits = _emulate_rows(table, idx, offset)
+    assert (hits == 1).all()
+    want = table.view(np.uint32)[(idx.astype(np.int64) + offset) % R]
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("off", _MAP_OFF)
+@pytest.mark.parametrize("n", _MAP_N)
+@pytest.mark.parametrize("R", _MAP_R)
+def test_lanes_kernel_mapping_stores_each_element_once(R, n, off):
+    """lanes_plan's blocks (a row of the transpose and a chunk of lanes
+    each) store every element of the (4, n) output once, with
+    table[(idx + offset) % R].T, bit for bit, and the staged copies cover
+    the padded row once, in 16-byte pieces."""
+    table, idx, offset = _map_inputs(R, n, off)
+    plan = t_pp.lanes_plan(n, R, 132)
+    got, hits = _emulate_lanes(table, idx, offset, plan)
+    assert (hits == 1).all()
+    want = table.view(np.uint32)[(idx.astype(np.int64) + offset) % R].T
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("force", [dict(per_thread=32, threads=1024),
+                                   dict(per_thread=4, threads=96),
+                                   dict(per_thread=8, threads=256)])
+def test_forced_plan_mapping_with_a_padded_table(force):
+    """Forced lanes plans whose chunks overrun n (and a block size that is
+    not a power of two), on a table of R = 1003 rows, which the transpose
+    pads to 1004: every element stored once, bit for bit."""
+    n, R = 9 * 1024, 1003
+    table = _extreme_table(R, seed=2)
+    idx = np.random.default_rng(2).integers(0, R, n).astype(np.int32)
+    plan = t_pp.lanes_plan(n, R, 132, **force)
+    got, hits = _emulate_lanes(table, idx, 5, plan)
+    assert (hits == 1).all()
+    want = table.view(np.uint32)[(idx.astype(np.int64) + 5) % R].T
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_sm", [8, 132])
+@pytest.mark.parametrize("n", [1024, 3 * 1024, 9 * 1024, 65536, 100 * 1024,
+                               524288])
+def test_rows_and_lanes_plans_cover_every_lane_once(n, n_sm):
+    """The lanes plan's chunks of per_thread x threads lanes cover [0, n)
+    once (the last may overrun it), four blocks a chunk; a block's shared
+    memory (the padded row) fits the H100's 227 KB, and the blocks stay
+    within one wave of one block an SM unless the largest chunk cannot.
+    The rows kernel's fixed launch does not depend on the card."""
+    for R in (1003, 32512, t_pp.LANES_R_MAX):
+        lp = t_pp.lanes_plan(n, R, n_sm)
+        L = lp.per_thread * lp.threads
+        assert (lp.chunks - 1) * L < n <= lp.chunks * L
+        assert lp.ctas == 4 * lp.chunks
+        assert lp.ctas <= n_sm or lp.per_thread == t_pp.LANES_PER_THREAD[-1]
+        assert lp.per_thread in t_pp.LANES_PER_THREAD
+        assert lp.smem_bytes == 4 * t_pp.lanes_pitch(R) <= t_pp.SMEM_MAX
+    assert t_pp.plan_for("rows", n, 32512, n_sm) is None
+    assert t_pp.run_args("rows", None) == (0, 0, 0)
+
+
+def test_rows_and_lanes_plans_at_the_probe_sizes():
+    """On the H100's 132 SMs the lanes plan takes blocks of 512 threads
+    holding 130,048 bytes of the radial table's row each, 128 blocks: 4
+    lanes a thread at the probe's n and 32 at a walk generation's; the
+    rows launch is 256 and 2048 blocks of 128 threads, 2 rows a thread."""
+    assert t_pp.lanes_plan(65536, 32512, 132)[2:] == (4, 512, 32, 128,
+                                                      130048)
+    assert t_pp.lanes_plan(524288, 32512, 132)[2:] == (32, 512, 32, 128,
+                                                       130048)
+    assert t_pp.run_args("lanes", t_pp.lanes_plan(65536, 32512, 132)) \
+        == (1, 4, 512)
+    assert (t_pp.ROWS_G, t_pp.ROWS_NT) == (2, 128)
+    assert [-(-n // (t_pp.ROWS_G * t_pp.ROWS_NT)) for n in (65536, 524288)] \
+        == [256, 2048]
+
+
+def test_lanes_table_past_the_staging_limit():
+    """The longest staged row fills a block's 227 KB; a table one row
+    longer raises ValueError, from the plan and from gather_rows (on the
+    CPU too), while rows and scalar take it. Plans the kernel has no
+    instance for raise too."""
+    R = t_pp.LANES_R_MAX
+    assert 4 * t_pp.lanes_pitch(R) == t_pp.SMEM_MAX
+    assert t_pp.lanes_plan(524288, R, 132).smem_bytes == t_pp.SMEM_MAX
+    bad = [dict(R=R + 1), dict(R=10 ** 6), dict(per_thread=2),
+           dict(per_thread=64), dict(threads=1056), dict(threads=100),
+           dict(n=1000), dict(R=0)]
+    for b in bad:
+        kw = dict(n=65536, R=32512, n_sm=132)
+        kw.update(b)
+        with pytest.raises(ValueError):
+            t_pp.lanes_plan(**kw)
+    rng = np.random.default_rng(4)
+    for rows in (R, R + 1):
+        table = torch.from_numpy(rng.standard_normal((rows, 4)).astype(
+            np.float32))
+        idx = torch.from_numpy(rng.integers(0, rows, 2048).astype(np.int32))
+        idx[0] = rows - 1
+        for variant in ("rows", "scalar"):
+            assert torch.equal(t_pp.gather_rows(table, idx, variant),
+                               table[idx.long()])
+        if rows <= R:
+            assert torch.equal(t_pp.gather_rows(table, idx, "lanes"),
+                               table[idx.long()])
+        else:
+            with pytest.raises(ValueError):
+                t_pp.gather_rows(table, idx, "lanes")
+
+
+def test_lanes_kernel_table_is_the_padded_transpose():
+    table = torch.from_numpy(_extreme_table(1003, seed=1))
+    tab = t_pp._kernel_table(table, "lanes")
+    assert tab.shape == (4, 1004) and tab.is_contiguous()
+    assert torch.equal(tab[:, :1003].view(torch.int32),
+                       table.T.view(torch.int32))
+    assert (tab[:, 1003:] == 0).all()
+
+
+def test_probe_main_past_the_lanes_limit_on_cpu(capsys):
+    """On a random table past LANES_R_MAX the probe leaves out the lanes
+    kernel (and the onehot forms, which need the radial table's shape) and
+    runs the rest."""
+    res = t_pp.main(["--device", "cpu", "--n", str(N), "--rows",
+                     str(t_pp.LANES_R_MAX + 1)])
+    out = capsys.readouterr().out
+    assert set(res) == set(_FORMS) - {"lanes", "onehot", "torch_onehot",
+                                      "torch_quads"}
+    assert all(r == {"ok": True, "ms": None, "err": 0.0}
+               for r in res.values())
+    assert f"lanes       : not run (needs --rows <= {t_pp.LANES_R_MAX})" \
+        in out
