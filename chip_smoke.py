@@ -17,7 +17,8 @@
    rows) at each n.
 4. Holds the persistent phase-fit kernel against its plain PyTorch twin on
    the card at Taylor-Green shapes (6 x 64 SIREN, 4096-point batches,
-   K = 8), checks that two calls agree bit for bit, and times it as the
+   K = 8 pools of three seeds) and against the twin in float64, checks
+   that two calls agree bit for bit, and times it as the
    main path runs it: one 10,000-iteration fit on a K = 512 pool.
 5. Holds the divergence grid and one walk-on-stars chunk on the card
    against the same stages on the CPU, on a small input.
@@ -26,20 +27,28 @@
    steps, with the per-stage wall-clock (and the fit kernel's own device
    time, "fit_kernel") and the Taylor-Green velocity error of each step,
    and checks that every phase fit ran on the kernel, one launch a fit.
-7. The karman path: steps 4 and 5 at karman's shapes (a 2 x 128 SIREN,
-   16,384-point batches, the channel with its circle), then get_scene
-   ("karman"), NeuralFluid(device="cuda"), init_state, add_source, the
-   ramp width halved as the JAX CLI does, and one step at the shipped
-   width (512^2 pressure points x 500 walks, a 1000 x 399 divergence
-   grid, 10,000-iteration fits on K = 512 pools with fresh weights each):
-   stage times, fit-kernel launches (3), P, kinetic energy, the source
-   fit's error against the inflow, peak memory.
+7. The paths of PATHS, each through path_phase: steps 4 and 5 at the
+   scene's shapes (the float64 twin beside the f32 one; a 24^3 grid for
+   the small input in 3D), then get_scene, NeuralFluid(device="cuda"),
+   init_state, add_source and the steps at the shipped width: karman (2 x
+   128 SIREN, the channel with its circle, the ramp width halved after
+   add_source as the JAX CLI does, one step, a 1000 x 399 divergence
+   grid, 512^2 pressure points), then the 3D scenes in the closed cube:
+   smoke (5 x 64, two steps), karman3d (2 x 128), smoke_obs and
+   vortex_collide (5 x 64), one step each, with an 80^3 divergence grid
+   and 256^2 pressure points; all with 500 walks, 10,000-iteration fits
+   on K = 512 pools with fresh weights each. Per path: stage times, walk
+   counts, one fit-kernel launch a fit, P, kinetic energy, the source
+   fit's error against the mean source and 0.5 mean|u|^2 after the steps
+   on the scene's vel_vis grid, over the points where the hard BCs pin
+   nothing, each within its bound, peak memory.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
-path), the card's name and power limit as nvidia-smi gives them, and
-{"ok": true, "device": {...}}.
+path: taylorgreen, karman, smoke, karman3d, smoke_obs, vortex_collide),
+the card's name and power limit as nvidia-smi gives them, and {"ok":
+true, "device": {...}}.
 """
 import json
 import re
@@ -50,9 +59,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-TF32_FLOPS = 495e12            # H100 SXM TF32 tensor cores, dense
 GATHER_N = (65536, 524288)     # the probe's n; a walk generation's lanes
 
 
@@ -67,54 +73,56 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _pool(fluid, K, seed):
-    """A pool of the scene's shapes from a numpy seed: points in the box,
-    the scene's affine hard-BC map at its ramp width, the initial velocity
-    plus noise as target, weight 1 in the fluid and 0 inside obstacles."""
-    rng = np.random.default_rng(seed)
-    B = fluid.n_batch
-    ss = fluid.scene.scene_size
-    x = rng.uniform((ss[0], ss[2]), (ss[1], ss[3]), (K, B, 2))
-    x = torch.from_numpy(x.astype(np.float32)).cuda()
-    A, c = fluid.velocity_affine(x, eps=fluid.scene.bdry_eps, t=0)
-    noise = torch.from_numpy(
-        rng.normal(0.0, 0.05, (K, B, 2)).astype(np.float32)).cuda()
-    tgt = fluid.scene.source_velocity(x) + noise
-    return (x, A.contiguous(), c.contiguous(), tgt,
-            fluid.scene.fluid_mask(x).to(torch.float32))
+POOL_SEEDS = (0, 1, 2)
 
 
 def check_fit_kernel(fluid, fk, tfluid, params, atol):
-    """Kernel vs plain twin on a K = 8 pool of the scene's shapes, 25
-    iterations at lr 1e-3: params to rtol 2e-4 / `atol` and loss to rtol
-    1e-2 (tests/test_fitkernel.py's tolerances for the scene's family); a
-    second call must agree bit for bit. Then the kernel as the main path
+    """Kernel vs plain twin on K = 8 pools of the scene's shapes, one for
+    each of POOL_SEEDS, 25 iterations at lr 1e-3: params to rtol 2e-4 /
+    `atol` (1e-3 at Taylor-Green, else PATHS's) and loss to rtol 1e-2; a
+    second call must agree bit for bit; the kernel is held to the twin in
+    float64 at the same tolerance, and both distances from float64 are
+    printed. Then the kernel as the main path
     runs it: a max_n_iters fit on a K = fit_pool pool with the main path's
     lr. Returns (max_abs_err, kernel ms/iter, twin ms/iter)."""
-    pool = _pool(fluid, 8, seed=0)
+    from nmcfluid_torch.sim.fitprobe import scene_pool
     cfg = fluid.siren_cfg
-    p_k, l_k = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
-    p_k2, l_k2 = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
-    _sync()
-    t0 = time.perf_counter()
-    p_r, l_r = fk.reference_adam_fit(params, cfg, pool, 25, 1e-3)
-    _sync()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / 25
     err = 0.0
-    for (a, b), (c, d), (e, f) in zip(p_k, p_r, p_k2):
-        for u, v, w in ((a, c, e), (b, d, f)):
-            torch.testing.assert_close(u, v, rtol=2e-4, atol=atol)
-            err = max(err, float((u - v).abs().max()))
-            if not torch.equal(u, w):
-                raise AssertionError("two fit-kernel calls differ")
-    if not torch.equal(l_k, l_k2):
-        raise AssertionError("two fit-kernel calls give other losses")
-    rel = abs(float(l_k) - float(l_r)) / abs(float(l_r))
-    if not rel <= 1e-2:
-        raise AssertionError(f"fit loss: kernel {float(l_k)} vs twin "
-                             f"{float(l_r)}")
+    for seed in POOL_SEEDS:
+        pool = scene_pool(fluid, 8, seed=seed)
+        p_k, l_k = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
+        p_k2, l_k2 = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
+        _sync()
+        t0 = time.perf_counter()
+        p_r, l_r = fk.reference_adam_fit(params, cfg, pool, 25, 1e-3)
+        _sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 25
+        p_d, _ = fk.reference_adam_fit(
+            [(W.double(), b.double()) for W, b in params], cfg,
+            tuple(t.double() for t in pool), 25, 1e-3)
+        err_s = err_k64 = err_r64 = 0.0
+        for (a, b), (c, d), (e, f), (g, h) in zip(p_k, p_r, p_k2, p_d):
+            for u, v, w, x in ((a, c, e, g), (b, d, f, h)):
+                torch.testing.assert_close(u, v, rtol=2e-4, atol=atol)
+                torch.testing.assert_close(u.double(), x, rtol=2e-4,
+                                           atol=atol)
+                err_s = max(err_s, float((u - v).abs().max()))
+                err_k64 = max(err_k64, float((u.double() - x).abs().max()))
+                err_r64 = max(err_r64, float((v.double() - x).abs().max()))
+                if not torch.equal(u, w):
+                    raise AssertionError("two fit-kernel calls differ")
+        if not torch.equal(l_k, l_k2):
+            raise AssertionError("two fit-kernel calls give other losses")
+        rel = abs(float(l_k) - float(l_r)) / abs(float(l_r))
+        if not rel <= 1e-2:
+            raise AssertionError(f"fit loss: kernel {float(l_k)} vs twin "
+                                 f"{float(l_r)}")
+        err = max(err, err_s)
+        print(f"{fluid.scene.name} pool seed {seed}: fit kernel vs twin "
+              f"{err_s:.3e}; kernel and twin against the float64 twin "
+              f"{err_k64:.3e} and {err_r64:.3e} (atol {atol:g})", flush=True)
     # the main path's fit: K = fit_pool pool, max_n_iters iterations, its lr
-    pool = _pool(fluid, fluid.fit_pool, seed=1)
+    pool = scene_pool(fluid, fluid.fit_pool, seed=1)
     lr = tfluid._fit_lr_array(fluid)
     n = fluid.max_n_iters
     fk.fused_adam_fit(params, cfg, pool, 20, lr)
@@ -127,8 +135,8 @@ def check_fit_kernel(fluid, fk, tfluid, params, atol):
     del pool
     torch.cuda.empty_cache()
     print(f"{fluid.scene.name} fit kernel vs twin: max_abs_err {err:.3e} "
-          f"(atol {atol:g}), loss {float(l_k):.6e} vs {float(l_r):.6e}, "
-          f"repeat bit-identical; ms/iter kernel {kernel_ms:.5f} ({n} "
+          f"over pool seeds {POOL_SEEDS} (atol {atol:g}), repeats "
+          f"bit-identical; ms/iter kernel {kernel_ms:.5f} ({n} "
           f"iterations, K = {fluid.fit_pool}), twin {plain_ms:.4f}",
           flush=True)
     return err, kernel_ms, plain_ms
@@ -169,12 +177,13 @@ def fit_build_report(log, plan, threads):
     return kernels
 
 
-def check_small_input(tfluid, scene, Key, eps):
+def check_small_input(tfluid, scene, Key, eps, div_resolution=64):
     """The divergence grid and one WoSt chunk on the card against the same
     stage on the CPU, on a small input with the same keys, at ramp width
     eps."""
-    kw = dict(sample_resolution=16, wost_resolution=16, div_resolution=64,
-              n_walks=48, max_n_iters=50, fit_pool=8)
+    kw = dict(sample_resolution=16, wost_resolution=16,
+              div_resolution=div_resolution, n_walks=48, max_n_iters=50,
+              fit_pool=8)
     gpu = tfluid.NeuralFluid(scene, device="cuda", **kw)
     cpu = tfluid.NeuralFluid(scene, device="cpu", **kw)
     params = gpu.init_state(3).params
@@ -196,28 +205,16 @@ def check_small_input(tfluid, scene, Key, eps):
           flush=True)
 
 
-def _bound(n_bytes, flops):
-    """(bound_ms, bound_by): the least time of the card's memory rate and
-    f32 rate for this work, at the published peaks (700 W)."""
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
-
 def _fit_bound(cfg, B):
-    """Least time of one Adam iteration at batch B: forward MACs of the
-    SIREN, backward twice that; bytes of one pool batch and of the params,
-    m and v read and written once. Returns (bound_ms, bound_by) at the f32
-    rate and the 3xTF32 bound: three TF32 products for each f32 one on
-    the tensor cores."""
-    H, Lh, D_in, D_out = (cfg.hidden_features, cfg.num_hidden_layers,
-                          cfg.in_features, cfg.out_features)
-    macs = D_in * H + Lh * H * H + H * D_out
-    n_params = macs + (Lh + 1) * H + D_out
-    n_bytes = 4 * (B * (D_in + D_out * D_out + 3 * D_out + 1)
-                   + 6 * n_params)
-    flops = 2 * 3 * macs * B
-    return _bound(n_bytes, flops) + (
-        max(n_bytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3,)
+    """Least time of one Adam iteration at batch B (fitkernel.
+    iteration_work), at the published peaks (700 W): (bound_ms, bound_by)
+    at the f32 rate, and the 3xTF32 bound: three TF32 products for each
+    f32 one on the tensor cores."""
+    from nmcfluid_torch.sim.fitkernel import iteration_work
+    from nmcfluid_torch.utils import h100
+    n_bytes, flops = iteration_work(cfg, B)
+    return h100.bound_ms(n_bytes, flops) + (
+        h100.bound_ms(n_bytes, 3 * flops, h100.TF32_FLOPS)[0],)
 
 
 def _gather_bound(idx):
@@ -226,7 +223,9 @@ def _gather_bound(idx):
     touch. (What a form does beyond that, such as onehot's sort and its
     reads of the whole table from L2, is the form's cost, not the
     function's.)"""
-    return _bound(20 * idx.shape[0] + 16 * torch.unique(idx).numel(), 0)
+    from nmcfluid_torch.utils import h100
+    return h100.bound_ms(20 * idx.shape[0] + 16 * torch.unique(idx).numel(),
+                         0)
 
 
 # the one-call PyTorch forms of out = table[idx] that the probe times
@@ -409,41 +408,87 @@ def taylor_green_phase(cuda_build):
                       kernel_ms, plain_ms)
 
 
-def karman_phase():
-    """The fit kernel and the small input at karman shapes, then the
-    karman path at full width: add_source, the ramp width halved as the
-    JAX CLI does (nmcfluid/run.py:498-500), one step; 3 fit-kernel
-    launches, every phase fit on fresh weights. Returns the fit kernel's
+# the paths after Taylor-Green: (scene, steps, fit-kernel atol, the fit
+# plan's (recompute, weight buffers, tiles a block), bound on the source
+# fit's relative squared error, band on the energy ratio after the steps).
+# Both readings are taken over the free region (free_region), where a
+# network that outputs zero reads an error of 1 and a ratio of 0 and so
+# crosses both bounds; the untrained network reads errors of 1.01 / 537 /
+# 1.01 / 22.6 / 8.8 and crosses the first; the JAX package's CPU run of
+# each scene (port_bounds.py) passes both: errors 3.8e-4 / 0.068 / 3.5e-4
+# / 0.082 / 0.061, ratios after a step 0.996 / 1.39 / 0.974 / 0.372 / 0.61
+# (karman / smoke / karman3d / smoke_obs / vortex_collide; PERF.md §2).
+# The atols: the smoke family's 1e-3 (sim/fitprobe.py); 1e-5 for the
+# 2 x 128 nets, on whose own pools the f32 twin itself leaves up to 5.9e-6
+# of the float64 twin and the kernel up to 5.5e-6, while faulty fits read
+# 1.8e-5 and more (`python -m nmcfluid_torch.sim.fitprobe --scene NAME
+# --faults`, PERF.md).
+PATHS = (
+    ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
+    ("smoke", 2, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
+    ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
+    ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
+    ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
+)
+
+
+def free_region(fluid, grid, n_keys=64):
+    """(free, src) on `grid`: free marks the fluid points where the hard
+    BCs pin no component (c == 0 in u = A raw + c at the scene's ramp
+    width), so that the field there is the network's; src is the
+    source's mean over the keys 0..n_keys-1 of its jitter (smoke's jet
+    draws one, the other sources draw nothing). port_bounds.py takes the
+    JAX package's readings the same way."""
+    from nmcfluid_torch.utils.keys import Key
+    scene = fluid.scene
+    _, c = fluid.velocity_affine(grid, eps=scene.bdry_eps, t=0)
+    free = scene.fluid_mask(grid) & (c == 0).all(-1)
+    src = sum(scene.source_velocity(grid, key=Key(k))
+              for k in range(n_keys)) / n_keys
+    return free, src
+
+
+def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
+    """The fit kernel and the small input at a scene's shapes, then its
+    path at full width: add_source, the ramp width the scene steps with
+    (halved in the 2D karman family as the JAX CLI does, nmcfluid/run.py:
+    498-500; SceneSpec.eps_after_source), and n_steps
+    steps (512^2 pressure points and a 1000^2-cell divergence grid in 2D,
+    256^2 and 80^3 in 3D, x 500 walks; 10,000-iteration fits on K = 512
+    pools with fresh weights each). Checks one fit-kernel launch a fit,
+    and on the scene's vel_vis grid, over the free region (free_region:
+    where the hard BCs pin nothing), the source fit's relative squared
+    error against the mean source (< err_bound) and 0.5 mean|u|^2 after
+    the steps within `band` x the mean source's. Returns the fit kernel's
     report entry."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
-    from nmcfluid_torch.sim.sampling import uniform_grid
+    from nmcfluid_torch.sim.sampling import grid_resolutions, uniform_grid
     from nmcfluid_torch.utils.keys import Key
 
-    scene = get_scene("karman")
+    scene = get_scene(name)
     fluid = tfluid.NeuralFluid(scene, device="cuda")
     plan = _plan(fk, fluid)
-    if (plan.recompute, plan.n_wbuf, plan.tiles_per_block) != (False, 1, 4):
-        raise AssertionError(f"karman fit plan {plan}")
-    print(f"fit kernel at karman shapes: {plan.G} blocks x {fk._NT} "
+    if (plan.recompute, plan.n_wbuf, plan.tiles_per_block) != plan_mode:
+        raise AssertionError(f"{name} fit plan {plan}")
+    print(f"fit kernel at {name} shapes: {plan.G} blocks x {fk._NT} "
           f"threads, {plan.tiles_per_block} tiles a block, store mode, "
-          f"{plan.n_wbuf} weight buffer, {plan.smem_bytes} B dynamic shared "
-          f"memory a block", flush=True)
+          f"{plan.n_wbuf} weight buffers, {plan.smem_bytes} B dynamic "
+          f"shared memory a block", flush=True)
     err, kernel_ms, plain_ms = check_fit_kernel(
-        fluid, fk, tfluid, fluid.init_state(1).params, atol=2e-6)
-    check_small_input(tfluid, scene, Key, scene.bdry_eps / 2)
+        fluid, fk, tfluid, fluid.init_state(1).params, atol)
+    check_small_input(tfluid, scene, Key, scene.eps_after_source(
+        scene.bdry_eps), div_resolution=64 if scene.dim == 2 else 24)
 
-    # the vel_vis grid (200 x 80) and the inflow on it, inside the fluid
     res = scene.vel_vis_resolution
     grid = uniform_grid(scene.scene_size, res, device="cuda")
-    inside = scene.fluid_mask(grid)
-    src = scene.source_velocity(grid)
+    free, src = free_region(fluid, grid)
 
     def energy(u):
-        return float(0.5 * torch.mean(torch.sum(u[inside] ** 2, -1)))
+        return float(0.5 * torch.mean(torch.sum(u[free] ** 2, -1)))
 
-    # ---- the karman path at full width
+    # ---- the path at full width
     fk.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -451,47 +496,59 @@ def karman_phase():
     _sync()
     wall = time.perf_counter() - t0
     u = tfluid._velocity_grid(fluid, state.params, state.eps, 0, res, False)
-    src_err = float(torch.sum((u - src)[inside] ** 2)
-                    / torch.sum(src[inside] ** 2))
-    print(f"karman add_source: {wall:.2f} s, source-fit error {src_err:.6e} "
-          f"(relative squared, {tuple(grid.shape[:2])} grid, inside the "
-          f"fluid)", flush=True)
-    # an untrained field reads ~1: only a broken fit crosses 5e-2
-    if not src_err < 5e-2:
-        raise AssertionError(f"karman source-fit error {src_err} >= 5e-2")
-    state = state._replace(eps=state.eps / 2)
+    src_err = float(torch.sum((u - src)[free] ** 2)
+                    / torch.sum(src[free] ** 2))
+    print(f"{name} add_source: {wall:.2f} s, source-fit error "
+          f"{src_err:.6e} (relative squared, {tuple(grid.shape[:-1])} grid, "
+          f"{int(free.sum())} free points; bound {err_bound:g})", flush=True)
+    if not src_err < err_bound:
+        raise AssertionError(f"{name} source-fit error {src_err} >= "
+                             f"{err_bound}")
+    state = state._replace(eps=scene.eps_after_source(state.eps))
     fluid.profile = True
-    fluid.stage_times = {}
-    _walk_report(0.0)
-    t0 = time.perf_counter()
-    state = fluid.step(state)
-    _sync()
-    wall = time.perf_counter() - t0
-    per_frame = fk.launches - 1
-    stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+    per_frame = []
+    for s in range(n_steps):
+        fluid.stage_times = {}
+        _walk_report(0.0)
+        before = fk.launches
+        t0 = time.perf_counter()
+        state = fluid.step(state)
+        _sync()
+        wall = time.perf_counter() - t0
+        per_frame.append(fk.launches - before)
+        stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+        print(f"{name} step {s + 1}: {wall:.2f} s, stages "
+              f"{json.dumps(stages)}, fit-kernel launches {per_frame[-1]}, "
+              f"P {float(state.P):.6e}; "
+              f"{_walk_report(stages['wost_solve'])}", flush=True)
     u = tfluid._velocity_grid(fluid, state.params, state.eps,
                               state.timestep, res, False)
     ratio = energy(u) / energy(src)
-    print(f"karman step 1: {wall:.2f} s, stages {json.dumps(stages)}, "
-          f"fit-kernel launches {per_frame}, P {float(state.P):.6e}, "
-          f"kinetic energy {float(fluid.kinetic_energy(state)):.6e}, "
-          f"0.5 mean|u|^2 {energy(u):.6e} = {ratio:.4f} x the inflow's; "
-          f"{_walk_report(stages['wost_solve'])}", flush=True)
-    if fk.launches != 3 or per_frame != 2:
-        raise AssertionError(f"expected 3 fit-kernel launches (1 source + "
-                             f"2 in the step), got {fk.launches}")
+    print(f"{name} after {n_steps} steps: kinetic energy "
+          f"{float(fluid.kinetic_energy(state)):.6e}, 0.5 mean|u|^2 "
+          f"{energy(u):.6e} = {ratio:.4f} x the source's (band {band})",
+          flush=True)
+    if fk.launches != 1 + 2 * n_steps or per_frame != [2] * n_steps:
+        raise AssertionError(f"{name}: expected {1 + 2 * n_steps} fit-kernel"
+                             f" launches (1 source + 2 a step), got "
+                             f"{fk.launches} ({per_frame} in the steps)")
     _check_finite(state, fluid._last_projection)
     _, p, _, div = fluid._last_projection
-    if tuple(div.shape) != (1000, 399) or tuple(p.shape) != (512 * 512,):
-        raise AssertionError(f"shapes: div {tuple(div.shape)}, p "
-                             f"{tuple(p.shape)}")
-    if not 0.5 <= ratio <= 2.0:
-        raise AssertionError(f"karman 0.5 mean|u|^2 after the step is "
-                             f"{ratio} x the inflow's")
-    print(f"karman peak device memory "
+    want = (grid_resolutions(scene.scene_size, fluid.div_resolution),
+            (fluid.n_pressure,))
+    if (tuple(div.shape), tuple(p.shape)) != want:
+        raise AssertionError(f"{name} shapes: div {tuple(div.shape)}, p "
+                             f"{tuple(p.shape)}, expected {want}")
+    if not band[0] <= ratio <= band[1]:
+        raise AssertionError(f"{name} 0.5 mean|u|^2 after the steps is "
+                             f"{ratio} x the source's")
+    print(f"{name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return _fit_entry("karman", fluid, fk.launches, per_frame, err,
-                      kernel_ms, plain_ms)
+    entry = _fit_entry(name, fluid, fk.launches, per_frame[0], err,
+                       kernel_ms, plain_ms)
+    del fluid, state, grid, free, src, u
+    torch.cuda.empty_cache()
+    return entry
 
 
 def main():
@@ -539,12 +596,11 @@ def main():
     gather_entries = gather_report(pp, probe, gather_launches)
     torch.cuda.empty_cache()
 
-    tg_entry = taylor_green_phase(cuda_build)
-    karman_entry = karman_phase()
+    fit_entries = [taylor_green_phase(cuda_build)]
+    fit_entries += [path_phase(*path) for path in PATHS]
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [tg_entry, karman_entry]
-                      + gather_entries}))
+    print(json.dumps({"kernels": fit_entries + gather_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

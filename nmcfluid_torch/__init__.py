@@ -5,11 +5,13 @@ reference). Module paths and function names follow the JAX package, so
 `nmcfluid_torch/wost/gen.py::estimate_solution_and_gradient_gen` is the
 counterpart of `nmcfluid/wost/gen.py::estimate_solution_and_gradient_gen`.
 
-It covers the frames of Taylor-Green and of the karman family (an open
-channel with circle obstacles): SIREN velocity field, fused Adam phase
-fits (a hand-written CUDA kernel on the GPU, its plain PyTorch twin on the
-CPU), the divergence grid, and the walk-on-stars pressure solve with the
-generation executor. Scenes and flags not ported yet raise
+It covers the frames of Taylor-Green, of the karman family (an open
+channel with circle obstacles) and of the four shipped 3D scenes (smoke,
+smoke_obs, vortex_collide, karman3d: the closed cube): SIREN velocity
+field, fused Adam phase fits (a hand-written CUDA kernel on the GPU, its
+plain PyTorch twin on the CPU), the divergence grid, and the walk-on-stars
+pressure solve with the generation executor. `python -m
+nmcfluid_torch.bench` times a frame. Scenes and flags not ported yet raise
 NotImplementedError naming the scene or flag. `wost/pallas_probe.py`
 measures the walk's table gather in the four forms the TPU tried, each a
 hand-written CUDA kernel.

@@ -1,5 +1,6 @@
 """Analytic signed-distance functions of scene obstacles (port of
-nmcfluid/geometry/sdf.py; the circle of the karman family only).
+nmcfluid/geometry/sdf.py: the circle of the karman family, the sphere of
+smoke_obs and karman3d's cylinder).
 
 Convention of the reference: sdf > 0 in the fluid, < 0 inside the
 obstacle.
@@ -23,4 +24,29 @@ def circle(center, radius):
 
     def f(x):
         return sqrt_rn((x[..., 0] - cx) ** 2 + (x[..., 1] - cy) ** 2) - r
+    return f
+
+
+def dist_to(x, center):
+    """|x - center| over the last axis, correctly rounded (sqrt_rn)."""
+    return sqrt_rn(sum((x[..., i] - c) ** 2 for i, c in enumerate(center)))
+
+
+def sphere(center, radius):
+    c = tuple(float(v) for v in center)
+    r = float(radius)
+
+    def f(x):
+        return dist_to(x, c) - r
+    return f
+
+
+def cylinder_xz(center_xz, radius):
+    """Infinite cylinder along y: distance in the (x, z) plane
+    (src/3d/sources.py:141-145)."""
+    cx, cz = float(center_xz[0]), float(center_xz[1])
+    r = float(radius)
+
+    def f(x):
+        return sqrt_rn((x[..., 0] - cx) ** 2 + (x[..., 2] - cz) ** 2) - r
     return f

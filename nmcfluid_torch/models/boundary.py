@@ -1,19 +1,30 @@
 """Per-scene hard boundary conditions (port of models/boundary.py).
 
-apply_boundary(scene, raw_vel, x, eps=...) -> vel, for the ported scenes:
+apply_boundary(scene, raw_vel, x, eps=..., t=..., key=...) -> vel, for the
+ported scenes:
   taylorgreen  a linear no-through-flow ramp on each of the four walls
                (src/2d/models/base.py:182-189);
   karman, karman2cyl, karman3cyl
                the inlet band clamped to u = karman_vel, the obstacle
                ramp off the scene's obstacle SDF (the min over its
-               circles) and the y-wall ramp (base.py:169-180).
+               circles) and the y-wall ramp (base.py:169-180);
+  smoke        the jet sphere set to w = 0.2 plus time-seeded jitter, and
+               the six-wall ramp (3d/base.py:199-222);
+  smoke_obs    the jet sphere set to w = 1, the sphere obstacle's ramp and
+               the six-wall ramp (3d/base.py:224-245);
+  vortex_collide  the six-wall ramp (3d/base.py:246-256);
+  karman3d     the inlet z-band set to w = karman_vel, the cylinder's ramp
+               and the x- and y-wall ramps (3d/base.py:258-274).
 Other scenes raise. At fixed x each policy is affine in the raw velocity,
 which the fused fit's (A, c) form relies on.
 """
 import numpy as np
 import torch
 
+from ..geometry.sdf import dist_to
+
 KARMAN_FAMILY = ("karman", "karman2cyl", "karman3cyl")
+JET_CENTER = (0.0, 0.0, -0.6)          # 3d/base.py:201
 
 
 def wall_ramp(coord, lo, hi, eps):
@@ -29,22 +40,55 @@ def sdf_ramp(sdf_vals, eps):
     return torch.clamp(sdf_vals, 0.0, eps) / eps
 
 
-def apply_boundary(scene, vel, x, *, eps, t=0):
-    """Apply the scene's hard BCs to raw network output vel at points x."""
+def _band_edge(lo, eps):
+    """lo + eps in float32, as the JAX package adds a weak Python float to
+    its float32 eps."""
+    return float(np.float32(lo) + np.float32(eps))
+
+
+def _box_ramps(x, ss, eps, axes):
+    """Per-component wall ramps on `axes`, 1 on the other components."""
+    return torch.stack([wall_ramp(x[..., i], ss[2 * i], ss[2 * i + 1], eps)
+                        if i in axes else torch.ones_like(x[..., 0])
+                        for i in range(x.shape[-1])], dim=-1)
+
+
+def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
+    """Apply the scene's hard BCs to raw network output vel at points x.
+    `key` (a key object, utils/keys.py) seeds smoke's jet jitter, folded
+    with the timestep t; the other scenes draw nothing."""
     ss = scene.scene_size
-    if scene.name == "taylorgreen":
-        u_w = wall_ramp(x[..., 0], ss[0], ss[1], eps)
-        v_w = wall_ramp(x[..., 1], ss[2], ss[3], eps)
-        return vel * torch.stack([u_w, v_w], dim=-1)
-    if scene.name in KARMAN_FAMILY:
-        # the band's edge in float32, as the JAX package adds a weak
-        # Python float to its float32 eps
-        edge = float(np.float32(ss[0]) + np.float32(eps))
-        inlet = (x[..., 0] >= ss[0]) & (x[..., 0] <= edge)
+    name = scene.name
+    if name == "taylorgreen":
+        return vel * _box_ramps(x, ss, eps, (0, 1))
+    if name in KARMAN_FAMILY:
+        inlet = (x[..., 0] >= ss[0]) & (x[..., 0] <= _band_edge(ss[0], eps))
         u = torch.where(inlet, scene.karman_vel, vel[..., 0])
         vel = torch.stack([u, vel[..., 1]], dim=-1)
         vel = vel * sdf_ramp(scene.obstacle_sdf(x), eps)[..., None]
-        v_w = wall_ramp(x[..., 1], ss[2], ss[3], eps)
-        return vel * torch.stack([torch.ones_like(v_w), v_w], dim=-1)
+        return vel * _box_ramps(x, ss, eps, (1,))
+    if name in ("smoke", "smoke_obs"):
+        in_jet = dist_to(x, JET_CENTER) < 0.1
+        if name == "smoke":
+            # the reference re-seeds numpy with the timestep
+            # (3d/base.py:205-210); here one draw a point from the
+            # timestep-folded key, as the JAX package does
+            r = 10.0 * (2.0 * key.fold_in(t).uniform(x.shape[:-1],
+                                                     x.device) - 1.0)
+            jet = torch.stack([0.01 * r, 0.01 * r, 0.2 + 0.01 * r], dim=-1)
+            vel = torch.where(in_jet[..., None], jet, vel)
+        else:
+            w = torch.where(in_jet, 1.0, vel[..., 2])
+            vel = torch.cat([vel[..., :2], w[..., None]], dim=-1)
+            vel = vel * sdf_ramp(scene.obstacle_sdf(x), eps)[..., None]
+        return vel * _box_ramps(x, ss, eps, (0, 1, 2))
+    if name == "vortex_collide":
+        return vel * _box_ramps(x, ss, eps, (0, 1, 2))
+    if name == "karman3d":
+        inlet = (x[..., 2] >= ss[4]) & (x[..., 2] <= _band_edge(ss[4], eps))
+        w = torch.where(inlet, scene.karman_vel, vel[..., 2])
+        vel = torch.cat([vel[..., :2], w[..., None]], dim=-1)
+        vel = vel * sdf_ramp(scene.obstacle_sdf(x), eps)[..., None]
+        return vel * _box_ramps(x, ss, eps, (0, 1))
     raise NotImplementedError(
         f"apply_boundary: scene {scene.name!r} is not ported yet")

@@ -40,15 +40,7 @@ class Yukawa2D:
     def __init__(self, lam):
         self.lam = float(lam)
         self.sqrt_lam = math.sqrt(float(lam))
-        self._quads = rt.pack_quads(rt.build_table(2)).astype("float32")
-        self._quads_on = {}     # device -> tensor copy of the table
-
-    def _table(self, device):
-        t = self._quads_on.get(device)
-        if t is None:
-            t = torch.from_numpy(self._quads).to(device)
-            self._quads_on[device] = t
-        return t
+        self._table = rt.QuadTable(2)
 
     def make_ball(self, R):
         Z = self.sqrt_lam * R
@@ -97,7 +89,7 @@ class Yukawa2D:
     def sample_radius_u(self, ball, u2):
         """In-ball radius from caller-supplied uniforms (..., 2) by the
         inverse-CDF table (only u2[..., 0] is used). Returns (r, G(r))."""
-        t = rt.sample_t_screened_u(self._table(ball.Z.device), ball.Z,
+        t = rt.sample_t_screened_u(self._table.on(ball.Z.device), ball.Z,
                                    u2[..., 0])
         r = torch.minimum(torch.clamp(t * ball.R, min=R_CLAMP), ball.R)
         return r, self.eval(ball, r)

@@ -1,8 +1,9 @@
 """Inverse-CDF tables for the screened in-ball radius draw.
 
 `build_table` is the JAX package's float64 numpy/scipy table, copied
-(nmcfluid/ops/radial_tables.py:41-57): the quantiles of the scale-free
-radial density of t = r/R, one row per log-spaced Z = sqrt(lam)*R.
+(nmcfluid/ops/radial_tables.py:33-57): the quantiles of the scale-free
+radial density of t = r/R, one row per log-spaced Z = sqrt(lam)*R, for
+the 2D and the 3D screened Green's function.
 `sample_t_screened_u` is the direct bilinear gather draw. The JAX package
 draws on the TPU with a gather-free one-hot matmul form instead; the two
 agree to about 1 ulp (radial_tables.py:124-129), and on a GPU a per-lane
@@ -27,17 +28,26 @@ def _scaled_g2d(t, Z):
         2.0 * (z - Z))
 
 
+def _scaled_g3d(t, Z):
+    """e^{z} * 4pi R * G_ball3D(r)|_{r=tR} (f64): (1 - e^{z-Z} sinh z /
+    sinh Z)/t, with sinh in its e^{-x} sinh x form."""
+    z = Z * t
+    sh = lambda x: -np.expm1(-2.0 * x) / 2.0   # e^{-x} sinh x
+    return (1.0 - (sh(z) / sh(Z)) * np.exp(2.0 * (z - Z))) / np.maximum(
+        t, 1e-12)
+
+
 def build_table(dim: int) -> np.ndarray:
-    """(N_Z, N_U) table of t = r/R quantiles for the screened density."""
-    if dim != 2:
-        raise NotImplementedError("radial tables: only the 2D density is "
-                                  "ported (3D scenes are not yet)")
+    """(N_Z, N_U) table of t = r/R quantiles for the screened density in
+    `dim` = 2 or 3 dimensions."""
+    if dim not in (2, 3):
+        raise ValueError(f"radial tables: dim {dim} (2 or 3)")
     zs = np.geomspace(_Z_MIN, _Z_MAX, _N_Z)
     us = np.linspace(0.0, 1.0, _N_U)
     s = np.linspace(1e-7, 1.0, _N_S)
     out = np.empty((_N_Z, _N_U))
     for i, Z in enumerate(zs):
-        g = _scaled_g2d(s, Z)
+        g = _scaled_g2d(s, Z) if dim == 2 else _scaled_g3d(s, Z)
         # radial density ~ s^{dim-1} * G * e^{-z}; e^{-z} = e^{-Z s}
         rho = np.maximum(s ** (dim - 1) * g * np.exp(-Z * s), 0.0)
         cdf = np.concatenate([[0.0], np.cumsum((rho[1:] + rho[:-1])
@@ -60,9 +70,25 @@ def pack_quads(table: np.ndarray) -> np.ndarray:
         axis=-1))
 
 
+class QuadTable:
+    """pack_quads(build_table(dim)) in float32, built once on the host and
+    copied once to each device that asks for it."""
+
+    def __init__(self, dim: int):
+        self._quads = pack_quads(build_table(dim)).astype("float32")
+        self._on = {}           # device -> tensor copy of the table
+
+    def on(self, device):
+        t = self._on.get(device)
+        if t is None:
+            t = torch.from_numpy(self._quads).to(device)
+            self._on[device] = t
+        return t
+
+
 def sample_t_screened_u(table_quads, Z, u):
     """t = r/R from a uniform u by bilinear inverse-CDF lookup.
-    `table_quads`: float32 tensor pack_quads(build_table(2)) on Z's
+    `table_quads`: float32 tensor pack_quads(build_table(dim)) on Z's
     device. Z, u, out: same shape."""
     zi = (torch.log(torch.clamp(Z, _Z_MIN, _Z_MAX)) - _LOG_Z_MIN) / _DLOG
     i0 = torch.clamp(torch.floor(zi).to(torch.int64), 0, _N_Z - 2)

@@ -1,2 +1,2 @@
-"""Scene catalog (Taylor-Green only so far)."""
+"""Scene catalog: Taylor-Green, the karman family and the 3D scenes."""
 from .specs import SCENES, SceneSpec, get_scene  # noqa: F401

@@ -1,5 +1,5 @@
-"""Scene specifications (port of scenes/specs.py: Taylor-Green and the
-karman family).
+"""Scene specifications (port of scenes/specs.py: Taylor-Green, the
+karman family and the four shipped 3D scenes).
 
 Taylor-Green (examples/taylorgreen/run.sh): the closed square
 [0.000447, 6.279553]^2 with analytic wall queries, a 6 x 64 SIREN, 64^2
@@ -15,7 +15,15 @@ initial fit (main.py:161-163). karman2cyl and karman3cyl are the
 reference's 2- and 3-cylinder channels (src/3d/wost/geometry_2cyl.obj,
 geometry_3cyl.obj, measured) with karman's hyperparameters.
 
-The other scenes of the JAX catalog are not ported yet and raise.
+The 3D scenes (examples/{smoke3d,smoke_obs,vortex_collide,karman3d}/
+run.sh) all walk the closed cube [-1, 1]^3 (cube.obj); their obstacles
+(smoke_obs's sphere, karman3d's cylinder along y) live only in the hard
+boundary conditions and the rejection sampler. Each has 128^2 training
+batches, a 256^2 pressure cloud with 500 walks and an 80^3 divergence grid
+(vis_resolution); smoke, smoke_obs and vortex_collide train a 5 x 64
+SIREN, karman3d a 2 x 128 one.
+
+jpipe is not ported yet and raises.
 """
 import dataclasses
 import math
@@ -26,6 +34,9 @@ import torch
 
 from ..geometry import sdf
 from ..geometry.analytic2d import FAR, make_analytic2d
+from ..geometry.analytic3d import make_box3d
+from ..geometry.sdf import dist_to
+from ..models.boundary import JET_CENTER
 from ..wost.solver import WalkSettings
 
 # measured from examples/karman/geometry_1cyl_long_open.obj
@@ -44,7 +55,7 @@ CYL3_OBS = ((-1.0004, -0.0004, 0.1310), (-0.0004, 0.1496, 0.1310),
 class SceneSpec:
     name: str
     dim: int
-    scene_size: Tuple[float, ...]       # (xmin, xmax, ymin, ymax)
+    scene_size: Tuple[float, ...]       # (xmin,xmax,ymin,ymax[,zmin,zmax])
     # training hyperparameters (examples/*/run.sh)
     num_hidden_layers: int
     hidden_features: int
@@ -53,9 +64,15 @@ class SceneSpec:
     wost_resolution: int
     vel_vis_resolution: int
     bdry_eps: float
+    # the 3D divergence grid is vis_resolution^3 (3d/model_split.py:268);
+    # 2D scenes keep the reference's fixed 1000^2 (model_split.py:255)
+    vis_resolution: int = 1000
     lr: float = 1e-5
     max_n_iters: int = 10_000
     reset_wts: bool = True
+    # the reference halves the 2D karman family's ramp width after the
+    # initial fit (main.py:161-163); karman3d keeps it
+    halve_eps_after_source: bool = False
     karman_vel: float = 0.5
     nonlinearity: str = "sine"
     sample_pattern: str = "random"      # config.py --sample (all examples)
@@ -63,7 +80,8 @@ class SceneSpec:
     absorption: float = 350.0
     n_walks: int = 500
     boundary_distance_mask: float = 1e-3
-    # obstacles: one circle (karman), or a tuple of (cx, cy, r) circles
+    # obstacles: one circle (karman), a tuple of (cx, cy, r) circles, a
+    # sphere (smoke_obs) or a cylinder along y centred at (x, z) (karman3d)
     obstacle_center: Optional[Tuple[float, ...]] = None
     obstacle_radius: Optional[float] = None
     obstacles: Optional[Tuple[Tuple[float, float, float], ...]] = None
@@ -90,8 +108,13 @@ class SceneSpec:
         return self._obstacle_sdf_builder is not None
 
     def source_velocity(self, x, key=None):
-        """Initial velocity at points x (src/2d/sources.py)."""
+        """Initial velocity at points x (src/{2d,3d}/sources.py); smoke
+        draws its jitter from the key object `key`."""
         return self._source_builder(self, x, key)
+
+    def eps_after_source(self, eps):
+        """The ramp width the steps use once add_source has run."""
+        return eps / 2 if self.halve_eps_after_source else eps
 
     def walk_settings(self, **over):
         kw = dict(n_walks=self.n_walks)
@@ -127,6 +150,51 @@ def _karman_source(spec, x, key):
                        torch.zeros(x.shape[:-1], device=x.device)], dim=-1)
     w = torch.clamp(spec.obstacle_sdf(x), 0.0, spec.bdry_eps) / spec.bdry_eps
     return vel * w[..., None]
+
+
+def _smoke_source(spec, x, key):
+    """Jet sphere at (0, 0, -0.6), r = 0.11, w ~ 0.2 + jitter
+    (src/3d/sources.py:22-49): one uniform a point from `key`, as the JAX
+    package draws it (the reference's numpy jitter has no fixed seed)."""
+    if key is None:
+        raise ValueError("smoke's source draws its jitter: pass a key")
+    mask = dist_to(x, JET_CENTER) < 0.11
+    r = 10.0 * (2.0 * key.uniform(x.shape[:-1], x.device) - 1.0)
+    jet = torch.stack([0.01 * r, 0.01 * r, 0.2 + 0.01 * r], dim=-1)
+    return torch.where(mask[..., None], jet, 0.0)
+
+
+def _smoke_obs_source(spec, x, key):
+    """w = 1 inside the jet sphere (src/3d/sources.py:51-68)."""
+    w = torch.where(dist_to(x, JET_CENTER) < 0.11, 1.0, 0.0)
+    z = torch.zeros_like(w)
+    return torch.stack([z, z, w], dim=-1)
+
+
+def _vortex_collide_source(spec, x, key):
+    """Two opposed jets with a cos(8 theta) azimuthal perturbation
+    (src/3d/sources.py:70-93), theta the angle of each point's own (x, y)
+    offset from the jet axis, as the JAX package implements it."""
+    def ring(center, sign, cx=0.2, cy=0.2):
+        mask = dist_to(x, center) < 0.2
+        d = torch.stack([x[..., 0] - cx, x[..., 1] - cy], dim=-1)
+        d = d / torch.clamp(dist_to(d, (0.0, 0.0)), min=1e-12)[..., None]
+        theta = torch.arccos(torch.clamp(d[..., 0], -1.0, 1.0))
+        w = sign * 0.2 * (1.0 + 0.01 * torch.cos(8.0 * theta))
+        return torch.where(mask, w, 0.0)
+    w = ring((0.0, 0.0, -0.21), 1.0) + ring((0.0, 0.0, 0.21), -1.0,
+                                            cx=0.201, cy=0.2)
+    z = torch.zeros_like(w)
+    return torch.stack([z, z, w], dim=-1)
+
+
+def _karman3d_source(spec, x, key):
+    """Uniform +z inflow ramped off the cylinder (src/3d/sources.py:
+    95-104)."""
+    ramp = torch.clamp(spec.obstacle_sdf(x), 0.0, spec.bdry_eps) \
+        / spec.bdry_eps
+    z = torch.zeros_like(ramp)
+    return torch.stack([z, z, spec.karman_vel * ramp], dim=-1)
 
 
 # ----------------------------------------------------------------- geometry
@@ -173,12 +241,33 @@ def _karman_sdf(spec):
                       KARMAN_OBS_R + spec.boundary_distance_mask)
 
 
+def _cube_boundary(spec):
+    """The closed cube [-1, 1]^3 with analytic slab queries."""
+    return make_box3d((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def _smoke_obs_sdf(spec):
+    return sdf.sphere(spec.obstacle_center, spec.obstacle_radius)
+
+
+def _karman3d_sdf(spec):
+    return sdf.cylinder_xz(spec.obstacle_center, spec.obstacle_radius)
+
+
 # ------------------------------------------------------------------ catalog
 
 _KARMAN_FAMILY = dict(
     dim=2, num_hidden_layers=2, hidden_features=128, dt=0.05,
     sample_resolution=128, wost_resolution=512, vel_vis_resolution=200,
-    bdry_eps=3e-2, karman_vel=0.5, _source_builder=_karman_source)
+    bdry_eps=3e-2, karman_vel=0.5, halve_eps_after_source=True,
+    _source_builder=_karman_source)
+
+CUBE = (-1.0, 1.0, -1.0, 1.0, -1.0, 1.0)
+_CUBE_SCENE = dict(
+    dim=3, scene_size=CUBE, dt=0.05, sample_resolution=128,
+    wost_resolution=256, vis_resolution=80, vel_vis_resolution=100,
+    bdry_eps=1e-2, _boundary_builder=_cube_boundary)
+_SMOKE_NET = dict(num_hidden_layers=5, hidden_features=64)
 
 SCENES = {
     # examples/taylorgreen/run.sh
@@ -204,6 +293,24 @@ SCENES = {
         name="karman3cyl", scene_size=NCYL_BBOX, obstacles=CYL3_OBS,
         _boundary_builder=_ncyl_boundary, _obstacle_sdf_builder=_ncyl_sdf,
         **_KARMAN_FAMILY),
+    # examples/smoke3d/run.sh
+    "smoke": SceneSpec(name="smoke", _source_builder=_smoke_source,
+                       **_SMOKE_NET, **_CUBE_SCENE),
+    # examples/smoke_obs/run.sh; the sphere of src/3d/main.py:87-89
+    "smoke_obs": SceneSpec(
+        name="smoke_obs", obstacle_center=(0.0, 0.0, -0.3),
+        obstacle_radius=0.1, _source_builder=_smoke_obs_source,
+        _obstacle_sdf_builder=_smoke_obs_sdf, **_SMOKE_NET, **_CUBE_SCENE),
+    # examples/vortex_collide/run.sh
+    "vortex_collide": SceneSpec(
+        name="vortex_collide", _source_builder=_vortex_collide_source,
+        **_SMOKE_NET, **_CUBE_SCENE),
+    # examples/karman3d/run.sh; the cylinder of src/3d/main.py:92-94
+    "karman3d": SceneSpec(
+        name="karman3d", num_hidden_layers=2, hidden_features=128,
+        karman_vel=0.5, obstacle_center=(0.0, -0.8), obstacle_radius=0.1,
+        _source_builder=_karman3d_source,
+        _obstacle_sdf_builder=_karman3d_sdf, **_CUBE_SCENE),
 }
 
 

@@ -153,9 +153,28 @@ def fit_plan(D_in, D_out, H, Lh, B, K, n_iters, n_sm, recompute=None):
                      f"shared memory")
 
 
+def iteration_work(cfg: SirenConfig, B: int):
+    """(bytes, flops) of one Adam iteration at batch B, the least any
+    implementation must move and compute: the SIREN's forward MACs and
+    twice as many backward, at 2 flops a MAC; one pool batch (x, A, c,
+    target, w) read, and the params, m and v read and written once."""
+    H, Lh, D_in, D_out = (cfg.hidden_features, cfg.num_hidden_layers,
+                          cfg.in_features, cfg.out_features)
+    macs = D_in * H + Lh * H * H + H * D_out
+    n_params = macs + (Lh + 1) * H + D_out
+    n_bytes = 4 * (B * (D_in + D_out * D_out + 3 * D_out + 1)
+                   + 6 * n_params)
+    return n_bytes, 2 * 3 * macs * B
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load csrc/fitkernel.cu."""
-    lib = cuda_build.load("fitkernel", _SOURCES)
+    return typed(cuda_build.load("fitkernel", _SOURCES))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` with fit_run's and fit_error_string's C signatures set (for
+    csrc/fitkernel.cu and the probes' edited copies of it)."""
     if not getattr(lib, "_nmc_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fit_run.argtypes = [P] * 15 + [I, P]
@@ -218,12 +237,14 @@ def _cuda_adam_fit(params, cfg, pool, n_iters, lr):
     return run_plan(plan, params, pool, lr)
 
 
-def run_plan(plan: FitPlan, params, pool, lr, phases=None):
+def run_plan(plan: FitPlan, params, pool, lr, phases=None, lib=None):
     """Launch the fit kernel with `plan` on checked CUDA inputs. phases, if
     given, is a zeroed int64 tensor of len(PHASES) + 2 that receives block
-    0's cycles per phase, then the loop's cycles and nanoseconds."""
+    0's cycles per phase, then the loop's cycles and nanoseconds. lib, if
+    given, is a typed library built from an edited copy of the source
+    (sim/fitprobe.py's faults) to launch instead."""
     global launches
-    lib = load_library()
+    lib = lib or load_library()
     dev = pool[0].device
     x, A, c, tgt, w = (t.contiguous() for t in pool)
     # fold the loss normalization into the weights: loss = sum w' r^2

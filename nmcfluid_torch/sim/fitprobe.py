@@ -1,6 +1,8 @@
 """Measure the fit kernel (csrc/fitkernel.cu) on the card.
 
     python -m nmcfluid_torch.sim.fitprobe [--shape tg] [--precision]
+    python -m nmcfluid_torch.sim.fitprobe --scene karman3d [--seeds 3] \\
+        [--faults]
 
 At one of the wrapper's shape families, on a K-batch pool made from a
 numpy seed:
@@ -11,15 +13,25 @@ numpy seed:
 - --precision holds the kernel and the plain twin against the twin in
   float64 after 25 iterations: the largest error of each parameter tensor
   and how many elements leave the card tests' tolerance.
+- --scene NAME does the same on the pools chip_smoke.py checks the kernel
+  on, built by the scene itself (its hard-BC (A, c) map and source), for
+  --seeds pool seeds (no timing); with --faults it also reads what a
+  faulty fit reads there: the twin with TF32 products, and copies of
+  csrc/fitkernel.cu with one deliberate fault each (FAULTS; built
+  together, with cuda_build's flags, into nmcfluid_torch/_build/), so
+  that a tolerance can be seen to tell them from the kernel.
 
 Every number needs a CUDA card; without one the probe exits with an error.
 """
 import argparse
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..models.siren import SirenConfig, init_siren
+from ..utils import cuda_build
 from ..utils.keys import Key
 from . import fitkernel as fk
 
@@ -30,6 +42,53 @@ SHAPES = {"tg": ((2, 2, 64, 6, 4096), 1e-3),
           "smoke": ((3, 3, 64, 5, 16384), 1e-3),
           "karman3d": ((3, 3, 128, 2, 16384), 2e-6),
           "ragged": ((2, 2, 64, 2, 1000), 2e-6)}
+
+
+# name -> edits of csrc/fitkernel.cu, each found there once: faults of the
+# size a precision slip or an indexing slip would leave
+FAULTS = {
+    # the hidden weight gradients from TF32 operands (10-bit mantissas),
+    # as a TF32 tensor-core product would take them
+    "tf32_wgrad": [
+        ("constexpr float ADAM_EPS = 1e-8f;\n",
+         "constexpr float ADAM_EPS = 1e-8f;\n"
+         "__device__ __forceinline__ float tf32r(float x) {\n"
+         "  return __uint_as_float((__float_as_uint(x) + 0x1000u) & "
+         "0xffffe000u);\n}\n"),
+        ("acc[a][b] = fmaf(sv[a], gv[b], acc[a][b]);",
+         "acc[a][b] = fmaf(tf32r(sv[a]), tf32r(gv[b]), acc[a][b]);")],
+    # the gradient sum leaves out the last block's partial row
+    "drop_row": [
+        ("const int r1 = min((grp + 1) * rpg, p.n_work);",
+         "const int r1 = min((grp + 1) * rpg, p.n_work - 1);")],
+    # sin and cos by the fast intrinsics (what --use_fast_math would do)
+    "fast_sincos": [
+        ("  sincosf(OMEGA * z, &s, &c);", "  __sincosf(OMEGA * z, &s, &c);"),
+        ("  sincosf(OMEGA * a.C(l)[idx], &s, &c);",
+         "  __sincosf(OMEGA * a.C(l)[idx], &s, &c);"),
+        ("sincosf(OMEGA * cz, &sz, &cz);",
+         "__sincosf(OMEGA * cz, &sz, &cz);")],
+}
+
+
+def fault_source(name):
+    """csrc/fitkernel.cu with the fault's edits."""
+    with open(os.path.join(cuda_build.CSRC, fk._SOURCES[0])) as f:
+        src = f.read()
+    for old, new in FAULTS[name]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"fitprobe: {old!r} is not in "
+                               f"csrc/fitkernel.cu once")
+        src = src.replace(old, new)
+    return src
+
+
+def fault_libraries():
+    """{fault: typed library}, every copy built at once."""
+    with ThreadPoolExecutor(len(FAULTS)) as ex:
+        libs = {n: ex.submit(cuda_build.load_source, f"fitkernel_{n}",
+                             fault_source(n)) for n in FAULTS}
+        return {n: fk.typed(f.result()) for n, f in libs.items()}
 
 
 def make_problem(dev, *, D_in=2, D_out=2, H=64, Lh=2, K=2, B=4096, seed=0,
@@ -49,6 +108,25 @@ def make_problem(dev, *, D_in=2, D_out=2, H=64, Lh=2, K=2, B=4096, seed=0,
             t(rng.normal(size=(K, B, D_out)) * 0.2),
             t(rng.uniform(size=(K, B)) > 0.25))
     return cfg, params, pool
+
+
+def scene_pool(fluid, K, seed):
+    """A pool of a scene's shapes from a numpy seed: points in the box,
+    the scene's affine hard-BC map at its ramp width, the initial velocity
+    (smoke's jitter from a key of the seed) plus noise as target, weight 1
+    in the fluid and 0 inside obstacles."""
+    dev = fluid.device
+    rng = np.random.default_rng(seed)
+    B, D = fluid.n_batch, fluid.scene.dim
+    ss = fluid.scene.scene_size
+    x = rng.uniform(ss[0::2], ss[1::2], (K, B, D))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    A, c = fluid.velocity_affine(x, eps=fluid.scene.bdry_eps, t=0)
+    noise = torch.from_numpy(
+        rng.normal(0.0, 0.05, (K, B, D)).astype(np.float32)).to(dev)
+    tgt = fluid.scene.source_velocity(x, key=Key(seed)) + noise
+    return (x, A.contiguous(), c.contiguous(), tgt,
+            fluid.scene.fluid_mask(x).to(torch.float32))
 
 
 def time_fit(plan, params, pool):
@@ -92,16 +170,79 @@ def precision(shape, dev):
     return rows
 
 
+def scene_precision(name, dev, seeds, faults=False):
+    """{seed: {fit: (max |fit - twin|, max |fit - f64|, elements of fit
+    outside rtol 2e-4 / the family's atol of the f64 twin)}} after 25
+    iterations at lr 1e-3 on scene_pool(K = 8, seed), from the weights
+    chip_smoke.py starts from (init_state(1)). The fits: the kernel and the
+    f32 twin; with `faults`, the twin with TF32 products and each of
+    FAULTS."""
+    from ..scenes import get_scene
+    from .fluid import NeuralFluid
+    fluid = NeuralFluid(get_scene(name), device=dev)
+    family = {"taylorgreen": "tg", "smoke_obs": "smoke",
+              "vortex_collide": "smoke"}.get(name, name)
+    atol = SHAPES[family][1]
+    cfg, params = fluid.siren_cfg, fluid.init_state(1).params
+    p64 = [(W.double(), b.double()) for W, b in params]
+    libs = fault_libraries() if faults else {}
+    out = {}
+    for seed in range(seeds):
+        pool = scene_pool(fluid, 8, seed)
+        K, B, D_in, D_out, H, Lh = fk._shapes(params, pool)
+        plan = fk.fit_plan(D_in, D_out, H, Lh, B, K, 25, fk._sm_count(dev))
+        fits = {"kernel": fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)[0],
+                "twin": fk.reference_adam_fit(params, cfg, pool, 25,
+                                              1e-3)[0]}
+        if faults:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                fits["twin_tf32"] = fk.reference_adam_fit(
+                    params, cfg, pool, 25, 1e-3)[0]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            for n, lib in libs.items():
+                fits[n] = fk.run_plan(plan, params, pool, 1e-3, lib=lib)[0]
+        p_d, _ = fk.reference_adam_fit(
+            p64, cfg, tuple(t.double() for t in pool), 25, 1e-3)
+        flat = {k: [t.double() for pair in p for t in pair]
+                for k, p in fits.items()}
+        ref = [t for pair in p_d for t in pair]
+        row = {}
+        for k, ts in flat.items():
+            et = max(float((a - r).abs().max())
+                     for a, r in zip(ts, flat["twin"]))
+            ed = max(float((a - d).abs().max()) for a, d in zip(ts, ref))
+            bad = sum(int(((a - d).abs() > atol + 2e-4 * d.abs()).sum())
+                      for a, d in zip(ts, ref))
+            row[k] = (et, ed, bad)
+        out[seed] = row
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m nmcfluid_torch.sim.fitprobe")
     ap.add_argument("--shape", choices=tuple(SHAPES), default="tg")
     ap.add_argument("--k", type=int, default=8, help="pool batches")
     ap.add_argument("--iters", type=int, default=2000)
     ap.add_argument("--precision", action="store_true")
+    ap.add_argument("--scene", default=None,
+                    help="precision on this scene's own pools instead")
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--faults", action="store_true",
+                    help="with --scene: also the TF32 twin and FAULTS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fitprobe: needs a CUDA device")
     dev = torch.device("cuda")
+    if args.scene:
+        res = scene_precision(args.scene, dev, args.seeds, args.faults)
+        for seed, row in res.items():
+            for fit, (et, ed, bad) in row.items():
+                print(f"{args.scene} pool seed {seed} {fit}: max |fit-twin| "
+                      f"{et:.3e}, |fit-f64| {ed:.3e}; elements outside "
+                      f"the family's tolerance of f64 {bad}", flush=True)
+        return res
     (D_in, D_out, H, Lh, B), _ = SHAPES[args.shape]
     cfg, params, pool = make_problem(dev, D_in=D_in, D_out=D_out, H=H,
                                      Lh=Lh, K=args.k, B=B)

@@ -1,15 +1,18 @@
 """The neural Monte Carlo fluid stepper (port of nmcfluid/sim/fluid.py).
 
-Per timestep (model_split.py:44-82), for the ported 2D scenes
-(Taylor-Green and the karman family):
+Per timestep (model_split.py:44-82), for the ported scenes (Taylor-Green,
+the karman family and the 3D scenes smoke, smoke_obs, vortex_collide and
+karman3d):
     advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
     project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
              cloud, then fit u(x) to u_prev(x) - grad p(x)
 with `add_source` fitting the initial field once first. Every phase fit
 runs the fused fit (sim/fitkernel.py) on a K-batch pool and then the
 closed-form head solve (`ls_head`); in scenes with `reset_wts` (the
-karman family) each phase fit starts from fresh weights. On a CUDA device
-the fit is the hand-written kernel; on the CPU its plain twin.
+karman family and the 3D scenes) each phase fit starts from fresh
+weights. On a CUDA device the fit is the hand-written kernel; on the CPU
+its plain twin. The divergence grid is 1000^2 in 2D and vis_resolution^3
+in 3D.
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
@@ -23,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import get_device
-from ..geometry import analytic2d
+from ..geometry import analytic2d, analytic3d
 from ..models.boundary import apply_boundary
 from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             init_siren)
@@ -93,8 +96,6 @@ class NeuralFluid:
         if lr_schedule not in ("constant", "cosine", "tail"):
             raise ValueError(f"NeuralFluid: unknown lr_schedule "
                              f"{lr_schedule!r}")
-        if scene.dim != 2:
-            _unsupported("scene", scene.name)
         self.scene = scene
         self.device = get_device(device)
         self.lr_schedule = lr_schedule
@@ -107,8 +108,11 @@ class NeuralFluid:
         self.max_n_iters = max_n_iters or scene.max_n_iters
         self.sample_resolution = sample_resolution or scene.sample_resolution
         self.wost_resolution = wost_resolution or scene.wost_resolution
-        # the 2D divergence grid is 1000^2 in the reference (model_split.py:255)
-        self.div_resolution = div_resolution or 1000
+        # the 2D divergence grid is 1000^2 in the reference
+        # (model_split.py:255), the 3D one vis_resolution^3
+        # (3d/model_split.py:268)
+        self.div_resolution = div_resolution or (
+            1000 if scene.dim == 2 else scene.vis_resolution)
         self.n_batch = self.sample_resolution ** 2
         self.n_pressure = self.wost_resolution ** 2
         # 65,536-point chunks: they fix the key tree (one fold_in per chunk)
@@ -127,7 +131,7 @@ class NeuralFluid:
                 "NeuralFluid: param_ema, fit_plateau, grad_clip, loss_trace "
                 "and non-sine networks need the fresh-batch fit "
                 "(_adam_fit_single), which is not ported yet")
-        self.q = analytic2d
+        self.q = analytic2d if scene.dim == 2 else analytic3d
         self.boundary = scene.boundary.to(self.device)
         ss = scene.scene_size
 
@@ -137,10 +141,14 @@ class NeuralFluid:
         self._wost_scene = WostScene(
             dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
             absorption=scene.absorption)
-        self._bbox_lo = torch.tensor([ss[0], ss[2]], dtype=torch.float32,
+        self._bbox_lo = torch.tensor(ss[0::2], dtype=torch.float32,
                                      device=self.device)
-        self._bbox_hi = torch.tensor([ss[1], ss[3]], dtype=torch.float32,
+        self._bbox_hi = torch.tensor(ss[1::2], dtype=torch.float32,
                                      device=self.device)
+        # the key of the hard BCs' draws (smoke's jet jitter): the JAX
+        # package's fixed PRNGKey(7), folded with the timestep, not the
+        # step's key; init_state makes it of its own key's class
+        self.bc_key = Key(7)
         # opt-in per-stage wall-clock breakdown (synchronized per stage)
         self.profile = False
         self.stage_times: dict = {}
@@ -165,7 +173,8 @@ class NeuralFluid:
     def velocity(self, params, x, *, eps, t=0):
         """query_velocity (base.py:158-224): raw net + scene hard BCs."""
         return apply_boundary(self.scene, apply_siren(params, self.siren_cfg,
-                                                      x), x, eps=eps, t=t)
+                                                      x), x, eps=eps, t=t,
+                              key=self.bc_key)
 
     def velocity_affine(self, x, *, eps, t):
         """(A, c) with apply_boundary(raw) == A @ raw + c at x:
@@ -173,7 +182,8 @@ class NeuralFluid:
         dim = self.scene.dim
 
         def g(raw):
-            return apply_boundary(self.scene, raw, x, eps=eps, t=t)
+            return apply_boundary(self.scene, raw, x, eps=eps, t=t,
+                                  key=self.bc_key)
 
         zero = torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,
                            device=x.device)
@@ -189,8 +199,10 @@ class NeuralFluid:
 
     def init_state(self, seed: int = 0, key=None) -> SimState:
         """Random SIREN weights from `seed`, or from a key object `key`
-        (the tests pass one that replays jax.random)."""
+        (the tests pass one that replays jax.random). The hard BCs' key
+        becomes seed 7 of the same key class."""
         key = Key(seed) if key is None else key
+        self.bc_key = type(key).from_seed(7)
         kp, key = key.split(2)
         params = init_siren(kp, self.siren_cfg, self.device)
         return SimState(params=params, P=torch.zeros((), device=self.device),
@@ -465,7 +477,7 @@ _DIV_CHUNK = 1 << 18
 
 
 def _divergence_grid(fluid, prev, eps, t):
-    """-div u_prev on the cell-centered div_resolution^2 grid, by forward
+    """-div u_prev on the cell-centered div_resolution^dim grid, by forward
     mode (one jvp per axis) in chunks; the negation matches 'WoSt solves
     lap u = -f' (model_split.py:233)."""
     pts = sampling.uniform_grid(fluid.scene.scene_size, fluid.div_resolution,

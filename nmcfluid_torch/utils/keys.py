@@ -5,6 +5,7 @@ The port walks the same tree call for call — the same `split` counts and
 `fold_in` constants at the same places — through objects with this
 interface:
 
+    KeyClass.from_seed(seed)           -> key
     key.split(n)                       -> list of n keys
     key.fold_in(data)                  -> key
     key.uniform(shape, device, lo, hi) -> float32 tensor in [lo, hi)
@@ -38,6 +39,10 @@ class Key:
 
     def __init__(self, seed: int = 0):
         self.value = int(seed) & _M64
+
+    @classmethod
+    def from_seed(cls, seed: int):
+        return cls(seed)
 
     def __repr__(self):
         return f"Key({self.value:#x})"

@@ -5,6 +5,8 @@ The compacted walker-pool executor itself is not ported yet.
 """
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from ..ops import fastrand
@@ -13,16 +15,16 @@ from .solver import RADIUS_SHRINK, _dirichlet_dist
 
 # fastrand salts for the first-sample streams (the walk steps use salts
 # 0-5 on their own seed; these run on an independent seed)
-_SALT_JIT_S = 8    # source-direction stratum jitter
+_SALT_JIT_S = 8    # source-direction stratum jitter (+1 = 2nd axis in 3D)
 _SALT_U2A, _SALT_U2B = 10, 11   # in-ball radius uniforms
-_SALT_JIT_B = 12   # boundary-direction stratum jitter
+_SALT_JIT_B = 12   # boundary-direction stratum jitter (+1 in 3D)
 
 
 class PointData(NamedTuple):
     """Per-evaluation-point precomputes (N,) unless noted."""
     pts: torch.Tensor         # (N, D)
     R1: torch.Tensor          # first ball radius (walk_on_stars.h:486)
-    ball1: object             # greens2d.Ball of (N,) fields
+    ball1: object             # greens2d.Ball or greens3d.Ball, (N,) fields
     degenerate: torch.Tensor  # bool: on/next to the boundary
     rot: torch.Tensor         # (N, D-1) Cranley-Patterson rotation
     norm1: torch.Tensor       # first-ball source norm
@@ -57,10 +59,22 @@ def _strat_dir(seed2, w, i, salt, rot_i, shift, n_pairs, D):
     """First-step direction for pair w at point i: stratified over the
     pair index with counter-based jitter + per-point rotation (the role
     of walk_on_stars.h:489-491). w, i: int64 tensors broadcasting
-    together; rot_i broadcasts against them with a trailing (D-1)."""
-    if D != 2:
-        raise NotImplementedError("_strat_dir: only 2D is ported")
-    jit = fastrand.uniform(seed2, w, salt, i)
-    u = torch.remainder((w.to(torch.float32) + jit) / n_pairs
-                        + rot_i[..., 0] + shift, 1.0)
-    return unit_sphere_from_u(u[..., None], 2)
+    together; rot_i broadcasts against them with a trailing (D-1). In 3D
+    the pairs stratify a near-square grid of a = ceil(sqrt(n_pairs))
+    columns and ceil(n_pairs / a) rows, jittered at salts `salt` and
+    `salt + 1`."""
+    if D == 2:
+        jit = fastrand.uniform(seed2, w, salt, i)
+        u = torch.remainder((w.to(torch.float32) + jit) / n_pairs
+                            + rot_i[..., 0] + shift, 1.0)
+        return unit_sphere_from_u(u[..., None], 2)
+    a = int(math.ceil(math.sqrt(n_pairs)))
+    b = (n_pairs + a - 1) // a
+    j0 = fastrand.uniform(seed2, w, salt, i)
+    j1 = fastrand.uniform(seed2, w, salt + 1, i)
+    u0 = torch.remainder((torch.remainder(w, a).to(torch.float32) + j0) / a
+                         + rot_i[..., 0] + shift, 1.0)
+    u1 = torch.remainder((torch.div(w, a, rounding_mode="floor")
+                          .to(torch.float32) + j1) / b
+                         + rot_i[..., 1] + shift, 1.0)
+    return unit_sphere_from_u(torch.stack([u0, u1], dim=-1), 3)

@@ -1,7 +1,7 @@
 """Walk-on-stars walk step for screened Poisson problems (port of
 nmcfluid/wost/solver.py, the parts the fluid's pressure solve runs).
 
-The fluid's case: single-sided walks on a Neumann boundary with zero
+The fluid's case, in 2D and 3D: single-sided walks on a Neumann boundary with zero
 boundary data (demo/scene.h:168-200), no Dirichlet boundary, Yukawa
 screening from the first step and no maximal spheres. `_advance` is one
 step of every active lane (walk_on_stars.h:135-329): star radius, uniform
@@ -15,8 +15,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..geometry import analytic2d
-from ..ops import greens2d
+from ..geometry import analytic2d, analytic3d
+from ..ops import greens2d, greens3d
 from ..ops.sampling import unit_sphere_from_u
 
 RADIUS_SHRINK = 0.99  # walk_on_stars.h:9
@@ -61,14 +61,12 @@ class WostScene:
     all Neumann with zero data: the JAX package's Dirichlet boundary and
     boundary-data functions are not ported yet."""
     dim: int
-    neumann: object                 # analytic2d.Analytic2D
+    neumann: object                 # Analytic2D (dim 2) or Box3D (dim 3)
     source_fn: Callable
     absorption: float = 0.0
 
     def qmod(self):
-        if self.dim != 2:
-            raise NotImplementedError("WoSt: only 2D geometry is ported")
-        return analytic2d
+        return analytic2d if self.dim == 2 else analytic3d
 
     def greens(self):
         return _get_greens(self.dim, float(self.absorption))
@@ -78,10 +76,10 @@ class WostScene:
 def _get_greens(dim: int, absorption: float):
     """One Green's-function object per (dim, sigma): its radius table is
     built once on the host."""
-    if dim != 2 or absorption <= 0.0:
+    if absorption <= 0.0:
         raise NotImplementedError(
-            "WoSt: only the 2D screened (Yukawa) Green's function is ported")
-    return greens2d.Yukawa2D(absorption)
+            "WoSt: only the screened (Yukawa) Green's functions are ported")
+    return (greens2d.Yukawa2D if dim == 2 else greens3d.Yukawa3D)(absorption)
 
 
 def check_supported(scene: WostScene, settings: WalkSettings):

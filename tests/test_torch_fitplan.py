@@ -148,3 +148,24 @@ def test_probe_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         fitprobe.main([])
+
+
+@pytest.mark.parametrize("fault", tuple(fitprobe.FAULTS))
+def test_fault_copies_edit_the_kernel_source(fault):
+    """Each fault copy of csrc/fitkernel.cu (fitprobe --faults) finds each
+    of its edits once in the source and carries every replacement, and
+    leaves the rest of the file as it is."""
+    src = CU.read_text()
+    got = fitprobe.fault_source(fault)
+    for old, new in fitprobe.FAULTS[fault]:
+        assert src.count(old) == 1
+        assert new in got
+        src = src.replace(old, new)
+    assert got == src
+
+
+def test_divergence_probe_needs_a_card(monkeypatch):
+    from nmcfluid_torch.sim import divprobe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        divprobe.main([])

@@ -11,8 +11,9 @@ Each test holds a kernel against its plain version on the same card (the
 fit against `reference_adam_fit`, at the scenes' shape families and at
 deeper nets, the gathers against `reference_gather_rows`), with inputs
 made from a numpy seed; the fit also for bit-identical repeats and for a
-refused launch. One more holds a small karman WoSt chunk on the card
-against the same chunk on the CPU.
+refused launch. More hold a small karman and a small 3D WoSt chunk on
+the card against the same chunk on the CPU, and the fit kernel on pools
+made by the 3D scenes themselves (their hard-BC (A, c) maps).
 """
 import functools
 
@@ -150,9 +151,9 @@ def test_karman_wost_chunk_on_card_matches_cpu(cuda):
     """One small karman pressure chunk (the channel's walls, its circle,
     walks escaping through the open inlet and outlet) on the card against
     the CPU with the same keys: the divergence grid of a (64, 26) karman
-    grid at rtol 1e-4 / atol 5e-5, the same cloud and valid flags, and p /
-    grad p at the gen tolerances of tests/test_gen.py (same streams, other
-    sum order)."""
+    grid at rtol 1e-4 / atol 5e-5 (each device giving the same bits
+    twice), the same cloud and valid flags, and p / grad p at the gen
+    tolerances of tests/test_gen.py (same streams, other sum order)."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fluid as tfluid
     from nmcfluid_torch.utils.keys import Key
@@ -166,6 +167,11 @@ def test_karman_wost_chunk_on_card_matches_cpu(cuda):
     div_g = tfluid._divergence_grid(gpu, params, eps, 1)
     div_c = tfluid._divergence_grid(cpu, params_cpu, eps, 1)
     assert div_g.shape == (64, 26)
+    # a miss below is then the card's grid against the CPU's, not one
+    # device's run against its own
+    assert torch.equal(tfluid._divergence_grid(gpu, params, eps, 1), div_g)
+    assert torch.equal(tfluid._divergence_grid(cpu, params_cpu, eps, 1),
+                       div_c)
     torch.testing.assert_close(div_g.cpu(), div_c, rtol=1e-4, atol=5e-5)
     pts_g, valid_g, p_g, g_g = tfluid._pressure_solve(gpu, (div_g,), Key(11))
     pts_c, valid_c, p_c, g_c = tfluid._pressure_solve(cpu, (div_g.cpu(),),
@@ -174,6 +180,76 @@ def test_karman_wost_chunk_on_card_matches_cpu(cuda):
     assert torch.equal(valid_g.cpu(), valid_c)
     torch.testing.assert_close(p_g.cpu(), p_c, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(g_g.cpu(), g_c, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["smoke", "karman3d"])
+def test_3d_wost_chunk_on_card_matches_cpu(cuda, name):
+    """One small 3D pressure chunk in the closed cube (sigma = 350, the
+    nearest-texel source on a 24^3 divergence grid; karman3d's cloud
+    rejects its cylinder) on the card against the CPU with the same keys:
+    the divergence grid at rtol 1e-4 / atol 5e-5, the same cloud and valid
+    flags, and p / grad p at the gen tolerances of tests/test_gen.py
+    (rtol 2e-4 / atol 2e-5 and rtol 2e-3 / atol 2e-4)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.utils.keys import Key
+    kw = dict(sample_resolution=16, wost_resolution=16, div_resolution=24,
+              n_walks=48, max_n_iters=50, fit_pool=8)
+    gpu = tfluid.NeuralFluid(get_scene(name), device=cuda, **kw)
+    cpu = tfluid.NeuralFluid(get_scene(name), device="cpu", **kw)
+    params = gpu.init_state(3).params
+    params_cpu = [(W.cpu(), b.cpu()) for W, b in params]
+    eps = gpu.scene.bdry_eps
+    div_g = tfluid._divergence_grid(gpu, params, eps, 1)
+    div_c = tfluid._divergence_grid(cpu, params_cpu, eps, 1)
+    assert div_g.shape == (24, 24, 24)
+    torch.testing.assert_close(div_g.cpu(), div_c, rtol=1e-4, atol=5e-5)
+    pts_g, valid_g, p_g, g_g = tfluid._pressure_solve(gpu, (div_g,), Key(11))
+    pts_c, valid_c, p_c, g_c = tfluid._pressure_solve(cpu, (div_g.cpu(),),
+                                                      Key(11))
+    torch.testing.assert_close(pts_g.cpu(), pts_c, rtol=2e-7, atol=0)
+    assert torch.equal(valid_g.cpu(), valid_c)
+    torch.testing.assert_close(p_g.cpu(), p_c, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(g_g.cpu(), g_c, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("name, atol", [("smoke", 1e-3),
+                                        ("karman3d", 1e-5)])
+def test_3d_scene_pool_kernel_matches_twin_on_card(cuda, name, atol):
+    """The fit kernel on a K = 4 pool that the scene builds itself: points
+    in the cube, its hard-BC (A, c) at its ramp width (smoke's jet set by
+    the jitter of the key of seed 7, karman3d's inlet band and cylinder
+    ramp), its source as target, weight 0 inside obstacles; 25 iterations
+    at lr 1e-3, against the twin and against the twin in float64 at rtol
+    2e-4, the loss to 1e-2. atol: smoke's family's 1e-3
+    (sim/fitprobe.py); karman3d 1e-5, since on its own pools the f32 twin
+    itself sits up to 5.9e-6 from the float64 twin and the kernel up to
+    5.5e-6 (H100, four pool seeds, `fitprobe --scene karman3d --faults`),
+    past the 2e-6 its family holds on fitprobe's random pools, while
+    faulty fits read 4.6e-4 and more there (TF32 weight gradients; the
+    TF32 twin 2.9e-3, one partial row left out 1.1e-2)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.utils.keys import Key
+    fluid = tfluid.NeuralFluid(get_scene(name), device=cuda)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (4, fluid.n_batch, 3))
+                         .astype(np.float32)).to(cuda)
+    A, c = fluid.velocity_affine(x, eps=fluid.scene.bdry_eps, t=0)
+    tgt = fluid.scene.source_velocity(x, key=Key(5))
+    pool = (x, A.contiguous(), c.contiguous(), tgt,
+            fluid.scene.fluid_mask(x).to(torch.float32))
+    assert A.shape == (4, fluid.n_batch, 3, 3)
+    params = fluid.init_state(2).params
+    p_k, l_k = fk.fused_adam_fit(params, fluid.siren_cfg, pool, 25, 1e-3)
+    p_r, l_r = fk.reference_adam_fit(params, fluid.siren_cfg, pool, 25, 1e-3)
+    _assert_params_close(p_k, p_r, atol)
+    torch.testing.assert_close(l_k, l_r, rtol=1e-2, atol=1e-9)
+    p_d, _ = fk.reference_adam_fit(
+        [(W.double(), b.double()) for W, b in params], fluid.siren_cfg,
+        tuple(t.double() for t in pool), 25, 1e-3)
+    _assert_params_close([(W.double(), b.double()) for W, b in p_k], p_d,
+                         atol)
 
 
 @functools.lru_cache(maxsize=None)

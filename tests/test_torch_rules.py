@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
 def test_neural_fluid_needs_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for name in ("taylorgreen", "karman"):
+    for name in ("taylorgreen", "karman", "smoke"):
         scene = get_scene(name)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             NeuralFluid(scene)

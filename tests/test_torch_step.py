@@ -95,7 +95,7 @@ def test_final_state(runs):
                                   dict(grad_clip=1.0),
                                   dict(param_ema=0.99),
                                   dict(scene="jpipe"),
-                                  dict(scene="smoke")])
+                                  dict(wost_source="net")])
 def test_unported_flags_raise(over):
     """Flags and scenes not ported yet raise, naming themselves."""
     over = dict(over)
