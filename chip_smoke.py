@@ -51,6 +51,7 @@ the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
 import json
+import os
 import re
 import subprocess
 import time
@@ -340,7 +341,9 @@ def _plan(fk, fluid):
 def taylor_green_phase(cuda_build):
     """The fit kernel and the small input at Taylor-Green shapes, then the
     Taylor-Green path at full width and depth: add_source + 2 steps, 5
-    fit-kernel launches. Returns the fit kernel's report entry."""
+    fit-kernel launches. Returns the fit kernel's report entry, the params
+    after step 1 and the TG velocity errors after add_source and each
+    step."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -373,8 +376,9 @@ def taylor_green_phase(cuda_build):
     state = fluid.add_source(state)
     _sync()
     wall = time.perf_counter() - t0
-    print(f"add_source: {wall:.2f} s, TG velocity error "
-          f"{tg_error(state.params):.6e}", flush=True)
+    errors = [tg_error(state.params)]
+    print(f"add_source: {wall:.2f} s, TG velocity error {errors[0]:.6e}",
+          flush=True)
     fluid.profile = True
     per_frame = []
     for s in range(2):
@@ -386,11 +390,14 @@ def taylor_green_phase(cuda_build):
         _sync()
         wall = time.perf_counter() - t0
         per_frame.append(fk.launches - before)
+        if s == 0:
+            step1 = [(W.clone(), b.clone()) for W, b in state.params]
+        errors.append(tg_error(state.params))
         stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
         print(f"step {s + 1}: {wall:.2f} s, stages {json.dumps(stages)}, "
               f"fit-kernel launches {per_frame[-1]}, P "
               f"{float(state.P):.6e}, TG velocity error "
-              f"{tg_error(state.params):.6e}; "
+              f"{errors[-1]:.6e}; "
               f"{_walk_report(stages['wost_solve'])}", flush=True)
     launches = fk.launches
     if launches != 5 or per_frame != [2, 2]:
@@ -404,8 +411,8 @@ def taylor_green_phase(cuda_build):
                              f"{tuple(p.shape)}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
-    return _fit_entry("taylorgreen", fluid, launches, per_frame[0], err,
-                      kernel_ms, plain_ms)
+    return (_fit_entry("taylorgreen", fluid, launches, per_frame[0], err,
+                       kernel_ms, plain_ms), step1, errors)
 
 
 # the paths after Taylor-Green: (scene, steps, fit-kernel atol, the fit
@@ -551,6 +558,223 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
     return entry
 
 
+def _fresh_batch_on_card(tfluid, name, over, kw):
+    """The fresh-batch fit (_adam_fit_single) on the card against the CPU:
+    the source fit from the same Key(1) params on the same Key(5) batch
+    keys (drawn on the CPU and moved), 25 iterations at lr 1e-3, ls_head
+    0. Params at the fit kernel's tolerance of the family (rtol 2e-4 /
+    atol 1e-3: tests/test_fitkernel.py's deep nets and PATHS' smoke
+    family), the loss and the trace at its loss rtol 1e-2, iteration
+    counts and trace lengths equal. Returns (max_abs_err, card ms/iter)."""
+    import dataclasses
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.utils.keys import Key
+    scene = dataclasses.replace(get_scene(name), lr=1e-3, **over)
+    kw = dict(kw, fit_mode="xla", max_n_iters=25, ls_head=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fluid = tfluid.NeuralFluid(scene, device=dev, **kw)
+        state = fluid.init_state(1)
+        tfluid._fit_source(fluid, state.params, Key(5), scene.bdry_eps, 0)
+        _sync()
+        t0 = time.perf_counter()
+        params, st = tfluid._fit_source(fluid, state.params, Key(5),
+                                        scene.bdry_eps, 0)
+        _sync()
+        out[dev] = (params, st, (time.perf_counter() - t0) * 1e3 / st.iters)
+    (pg, sg, ms), (pc, sc, ms_cpu) = out["cuda"], out["cpu"]
+    if (sg.iters, tuple(sg.trace.shape)) != (sc.iters, tuple(sc.trace.shape)):
+        raise AssertionError(f"{name} fresh-batch fit: iterations "
+                             f"{sg.iters} / {sc.iters}, traces "
+                             f"{tuple(sg.trace.shape)} / "
+                             f"{tuple(sc.trace.shape)}")
+    err = 0.0
+    for (a, b), (c, d) in zip(pg, pc):
+        for u, v in ((a, c), (b, d)):
+            torch.testing.assert_close(u.cpu(), v, rtol=2e-4, atol=1e-3)
+            err = max(err, float((u.cpu() - v).abs().max()))
+    torch.testing.assert_close(sg.loss.cpu(), sc.loss, rtol=1e-2, atol=0)
+    torch.testing.assert_close(sg.trace.cpu(), sc.trace, rtol=1e-2, atol=0)
+    print(f"{name} {scene.nonlinearity} fresh-batch fit, card vs CPU: "
+          f"{sg.iters} iterations each, trace {tuple(sg.trace.shape)}, "
+          f"max_abs_err {err:.3e} (atol 1e-3); {ms:.3f} ms/iter on the "
+          f"card, {ms_cpu:.3f} on the CPU", flush=True)
+    return err, ms
+
+
+def cli_phase(tg_step1, tg_errors):
+    """The command line (nmcfluid_torch.run.main, as `python -m
+    nmcfluid_torch.run` calls it) on the card, at full width:
+    1. taylorgreen --n_timesteps 1 --density --stage_times: its
+       checkpoint after step 1 is the TG phase's params after step 1, bit
+       for bit, and error_ours.txt rows 0 and 1 the TG phase's errors;
+       then --ckpt 1 --until 2 --density resumes (a new key tree) to
+       ckpt_step_t002.npz and error row 2 under the phase's 5e-3 bound.
+       One fit-kernel launch a fit: 3, then 2.
+    2. smoke --n_timesteps 1 --density on the 200^3 density grid: each
+       density frame within [0, the initial density's max] (linear pulls
+       cannot leave it; the weights sum to 1 to within float32 rounding,
+       hence 8 ulps over the max), energy.txt one finite row, 3 launches.
+    3. The fresh-batch fit on the card against the CPU at TG's shapes and
+       at smoke's with tanh (_fresh_batch_on_card).
+    4. taylorgreen --fit_mode xla --vis_frequency 50 --max_n_iters 200
+       --adv_ref 1: four loss traces of 4 rows, two projections (4 walk
+       chunks each), no fit-kernel launch.
+    5. curl2d of the TG net on a 64^2 grid, card against CPU, at the
+       divergence grid's tolerance (rtol 1e-4 / atol 5e-5).
+    Returns the fit-kernel launches of runs 1 and 2 by scene."""
+    import tempfile
+    from nmcfluid_torch import run as trun
+    from nmcfluid_torch.ops.diff_ops import curl2d
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.sim.sampling import uniform_grid
+    from nmcfluid_torch.transport.density import init_density
+    from nmcfluid_torch.utils.checkpoint import load_ckpt
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = f"{tmp}/taylorgreen"
+
+        def cli(argv, scene):
+            fk.launches = 0
+            t0 = time.perf_counter()
+            trun.main(argv)
+            _sync()
+            n = fk.launches
+            launches[scene] = launches.get(scene, 0) + n
+            print(f"cli {' '.join(argv[:1] + argv[3:])}: "
+                  f"{time.perf_counter() - t0:.2f} s, fit-kernel launches "
+                  f"{n}", flush=True)
+            return n
+
+        # ---- 1. Taylor-Green, then a resume
+        n = cli(["taylorgreen", "--out", tmp, "--n_timesteps", "1",
+                 "--density", "--stage_times"], "taylorgreen")
+        if n != 3:
+            raise AssertionError(f"CLI taylorgreen: {n} fit-kernel launches,"
+                                 f" expected 3")
+        params, t = load_ckpt(f"{exp}/model", tg_step1, 1)
+        same = all(torch.equal(a, b) for pa, pb in zip(params, tg_step1)
+                   for a, b in zip(pa, pb))
+        diff = max(float((a - b).abs().max()) for pa, pb in
+                   zip(params, tg_step1) for a, b in zip(pa, pb))
+        print(f"CLI checkpoint after step 1 vs the TG phase's params: "
+              f"{'bit-identical' if same else 'differ'} (max |diff| "
+              f"{diff:.3e})", flush=True)
+        if not same or t != 1:
+            raise AssertionError("the CLI's step-1 checkpoint is not the "
+                                 "TG phase's params")
+        rows = np.loadtxt(f"{exp}/error_ours.txt")
+        print(f"CLI error_ours.txt {rows.tolist()}; TG phase "
+              f"{tg_errors[:2]}", flush=True)
+        if rows.shape != (2,) or rows.tolist() != tg_errors[:2]:
+            raise AssertionError("error_ours.txt rows 0-1 are not the TG "
+                                 "phase's errors")
+        n = cli(["taylorgreen", "--out", tmp, "--ckpt", "1", "--until", "2",
+                 "--density"], "taylorgreen")
+        rows2 = np.loadtxt(f"{exp}/error_ours.txt")
+        load_ckpt(f"{exp}/model", tg_step1, 2)
+        if n != 2 or rows2.shape != (3,) or rows2[:2].tolist() != \
+                rows.tolist() or not (np.isfinite(rows2[2])
+                                      and rows2[2] < 5e-3):
+            raise AssertionError(f"CLI resume: {n} launches, error rows "
+                                 f"{rows2.tolist()}")
+        print(f"CLI resume --ckpt 1 --until 2: error row 2 {rows2[2]:.6e} "
+              f"(bound 5e-3)", flush=True)
+
+        # ---- 2. smoke with the 200^3 density replay
+        torch.cuda.reset_peak_memory_stats()
+        n = cli(["smoke", "--out", tmp, "--n_timesteps", "1", "--density"],
+                "smoke")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if n != 3:
+            raise AssertionError(f"CLI smoke: {n} fit-kernel launches")
+        d0 = init_density(get_scene("smoke"), 200, device="cuda")
+        top = float(d0.max()) * (1 + 8 * 2.0 ** -24)
+        for t in (0, 1):
+            with np.load(f"{tmp}/smoke/density/density_t{t:03d}.npz") as z:
+                d, vel = z["density"], z["vel"]
+            if d.shape != (200,) * 3 or vel.shape != (200,) * 3 + (3,) or \
+                    not (d.min() >= 0.0 and d.max() <= top) or \
+                    not np.isfinite(vel).all():
+                raise AssertionError(f"smoke density frame {t}: shape "
+                                     f"{d.shape}, range [{d.min()}, "
+                                     f"{d.max()}] (max {top})")
+            print(f"smoke density frame {t}: [{d.min():.6e}, {d.max():.6e}]"
+                  f" within [0, {float(d0.max()):.6e}]", flush=True)
+        energy = np.loadtxt(f"{tmp}/smoke/energy.txt", ndmin=1)
+        if energy.shape != (1,) or not np.isfinite(energy).all():
+            raise AssertionError(f"smoke energy.txt {energy}")
+        print(f"CLI smoke: energy {energy[0]:.6e}, peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        del d0
+
+        # ---- 3. the fresh-batch fit, card against CPU
+        for name, over, kw in (
+                ("taylorgreen", {}, dict(grad_clip=0.1, param_ema=0.9,
+                                         loss_trace=5)),
+                ("smoke", dict(nonlinearity="tanh"),
+                 dict(grad_clip=0.1, param_ema=0.9, loss_trace=5))):
+            _fresh_batch_on_card(tfluid, name, over, kw)
+
+        # ---- 4. the fresh-batch path through the CLI
+        solves = []
+        solve = tfluid._pressure_solve
+
+        def counted(*a):
+            solves.append(1)
+            return solve(*a)
+        tfluid._pressure_solve = counted
+        try:
+            n = cli(["taylorgreen", "--out", tmp, "--exp_name", "xla",
+                     "--fit_mode", "xla", "--vis_frequency", "50",
+                     "--max_n_iters", "200", "--adv_ref", "1",
+                     "--n_timesteps", "1", "--stage_times"], "xla")
+        finally:
+            tfluid._pressure_solve = solve
+        traces = sorted(f for f in os.listdir(f"{tmp}/xla/txt")
+                        if f.startswith("loss_"))
+        shapes = {np.loadtxt(f"{tmp}/xla/txt/{f}").shape for f in traces}
+        if n != 0 or len(traces) != 4 or shapes != {(4,)} or \
+                len(solves) != 8:
+            raise AssertionError(f"CLI fresh-batch run: {n} launches, "
+                                 f"traces {traces} {shapes}, {len(solves)}"
+                                 f" walk chunks")
+        print(f"CLI fresh-batch adv_ref run: {traces}, 2 projections of 4 "
+              f"walk chunks, no fit-kernel launch", flush=True)
+
+    # ---- 5. curl2d on the card against the CPU
+    scene = get_scene("taylorgreen")
+    fl = {dev: tfluid.NeuralFluid(scene, device=dev) for dev in ("cuda",
+                                                                 "cpu")}
+    w = {}
+    for dev, f in fl.items():
+        params = [(W.to(dev), b.to(dev)) for W, b in tg_step1]
+        grid = uniform_grid(scene.scene_size, 64, device=dev)
+        w[dev] = curl2d(lambda x: f.velocity(params, x, eps=scene.bdry_eps,
+                                             t=1), grid)
+    torch.testing.assert_close(w["cuda"].cpu(), w["cpu"], rtol=1e-4,
+                               atol=5e-5)
+    print(f"curl2d of the TG net, 64^2 grid: card vs CPU max |diff| "
+          f"{float((w['cuda'].cpu() - w['cpu']).abs().max()):.3e}; the CLI "
+          f"phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def cli_entries(fit_entries, launches):
+    """Kernel-report entries of the fit kernel on the CLI's runs: the
+    measurements of the scene's own path with the CLI's launch count."""
+    out = []
+    for scene in ("taylorgreen", "smoke"):
+        entry = dict(next(e for e in fit_entries if e["path"] == scene))
+        entry.update(path=f"cli {scene}", launches=launches[scene])
+        out.append(entry)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -596,8 +820,10 @@ def main():
     gather_entries = gather_report(pp, probe, gather_launches)
     torch.cuda.empty_cache()
 
-    fit_entries = [taylor_green_phase(cuda_build)]
-    fit_entries += [path_phase(*path) for path in PATHS]
+    tg_entry, tg_step1, tg_errors = taylor_green_phase(cuda_build)
+    cli_launches = cli_phase(tg_step1, tg_errors)
+    fit_entries = [tg_entry] + [path_phase(*path) for path in PATHS]
+    fit_entries += cli_entries(fit_entries, cli_launches)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

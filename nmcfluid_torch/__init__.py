@@ -8,13 +8,19 @@ counterpart of `nmcfluid/wost/gen.py::estimate_solution_and_gradient_gen`.
 It covers the frames of Taylor-Green, of the karman family (an open
 channel with circle obstacles) and of the four shipped 3D scenes (smoke,
 smoke_obs, vortex_collide, karman3d: the closed cube): SIREN velocity
-field, fused Adam phase fits (a hand-written CUDA kernel on the GPU, its
-plain PyTorch twin on the CPU), the divergence grid, and the walk-on-stars
-pressure solve with the generation executor. `python -m
-nmcfluid_torch.bench` times a frame. Scenes and flags not ported yet raise
-NotImplementedError naming the scene or flag. `wost/pallas_probe.py`
-measures the walk's table gather in the four forms the TPU tried, each a
-hand-written CUDA kernel.
+field (sine, relu, elu or tanh), Adam phase fits (the fused fit: a
+hand-written CUDA kernel on the GPU, its plain PyTorch twin on the CPU;
+or the fresh-batch loop), the divergence grid, the walk-on-stars pressure
+solve with the generation executor, and the density replay. Entry points:
+
+    python -m nmcfluid_torch.run <scene> [flags]     simulate, save, resume
+    python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}
+    python -m nmcfluid_torch.bench                   time a frame
+
+each on the card unless given `--device cpu`. Scenes and flags not ported
+yet raise NotImplementedError naming the scene or flag.
+`wost/pallas_probe.py` measures the walk's table gather in the four forms
+the TPU tried, each a hand-written CUDA kernel.
 
 Precision: the SIREN's sin(30 z) layers amplify matmul rounding, and plain
 bf16 matmuls failed the Taylor-Green error gate in the JAX package, so the

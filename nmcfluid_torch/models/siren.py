@@ -3,7 +3,8 @@
 Parameters keep the JAX package's layout: a list of (W, b) with W of
 shape (fan_in, fan_out), and each layer computes x @ W + b, so parameters
 move between the packages unchanged (`params_from_numpy`). Hidden layers
-are sin(30 z); the outermost layer is linear. Matmuls run in float32 (the
+are sin(30 z) by default, or relu, elu or tanh (networks.py:34-37); the
+outermost layer is linear. Matmuls run in float32 (the
 package turns TF32 off): the sin(30 z) layers amplify input rounding, and
 plain bf16 failed the Taylor-Green error gate (nmcfluid/models/siren.py).
 """
@@ -25,7 +26,8 @@ class SirenConfig:
     out_features: int
     num_hidden_layers: int = 2
     hidden_features: int = 128
-    nonlinearity: str = "sine"
+    nonlinearity: str = "sine"       # sine | relu | elu | tanh
+    normal_init_std: float = 0.1     # relu/tanh init: 2D 0.1, 3D 1.0
 
 
 def _layer_dims(cfg: SirenConfig):
@@ -34,23 +36,36 @@ def _layer_dims(cfg: SirenConfig):
     return list(zip(dims[:-1], dims[1:]))
 
 
-def _check_sine(cfg: SirenConfig):
-    if cfg.nonlinearity != "sine":
-        raise NotImplementedError(
-            f"SIREN nonlinearity {cfg.nonlinearity!r}: only 'sine' is ported")
+_ACTIVATIONS = {
+    "sine": lambda z: torch.sin(OMEGA_0 * z),
+    "relu": torch.relu,
+    "elu": torch.nn.functional.elu,
+    "tanh": torch.tanh,
+}
 
 
 def init_siren(key, cfg: SirenConfig, device="cpu") -> Params:
-    """SIREN initialization (networks.py:78-90): first layer
-    U(-1/fan_in, 1/fan_in), later layers U(+-sqrt(6/fan_in)/30), zero
-    biases; one key per layer from key.split, as the JAX package."""
-    _check_sine(cfg)
+    """Initialization per nonlinearity (networks.py:78-96), zero biases,
+    one key per layer from key.split, as the JAX package: sine takes
+    U(-1/fan_in, 1/fan_in) in the first layer and U(+-sqrt(6/fan_in)/30)
+    after; elu N(0, 1.5505/fan_in); relu and tanh N(0, normal_init_std^2).
+    """
+    if cfg.nonlinearity not in _ACTIVATIONS:
+        raise ValueError(f"SIREN nonlinearity {cfg.nonlinearity!r}")
     dims = _layer_dims(cfg)
     params = []
     for i, ((fan_in, fan_out), k) in enumerate(zip(dims,
                                                    key.split(len(dims)))):
-        bound = 1.0 / fan_in if i == 0 else math.sqrt(6.0 / fan_in) / OMEGA_0
-        w = k.uniform((fan_in, fan_out), device, -bound, bound)
+        shape = (fan_in, fan_out)
+        if cfg.nonlinearity == "sine":
+            bound = (1.0 / fan_in if i == 0
+                     else math.sqrt(6.0 / fan_in) / OMEGA_0)
+            w = k.uniform(shape, device, -bound, bound)
+        elif cfg.nonlinearity == "elu":
+            std = math.sqrt(1.5505188080679277) / math.sqrt(fan_in)
+            w = std * k.normal(shape, device)
+        else:
+            w = cfg.normal_init_std * k.normal(shape, device)
         params.append((w, torch.zeros(fan_out, dtype=torch.float32,
                                       device=device)))
     return params
@@ -59,10 +74,10 @@ def init_siren(key, cfg: SirenConfig, device="cpu") -> Params:
 def apply_siren_features(params: Params, cfg: SirenConfig, x):
     """Penultimate activations (..., hidden_features): the input of the
     final linear layer."""
-    _check_sine(cfg)
+    act = _ACTIVATIONS[cfg.nonlinearity]
     h = x
     for w, b in params[:-1]:
-        h = torch.sin(OMEGA_0 * (h @ w + b))
+        h = act(h @ w + b)
     return h
 
 

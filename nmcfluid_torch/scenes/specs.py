@@ -23,7 +23,7 @@ batches, a 256^2 pressure cloud with 500 walks and an 80^3 divergence grid
 (vis_resolution); smoke, smoke_obs and vortex_collide train a 5 x 64
 SIREN, karman3d a 2 x 128 one.
 
-jpipe is not ported yet and raises.
+jpipe (UNPORTED_SCENES) is not ported yet and raises.
 """
 import dataclasses
 import math
@@ -69,6 +69,11 @@ class SceneSpec:
     vis_resolution: int = 1000
     lr: float = 1e-5
     max_n_iters: int = 10_000
+    early_stop_loss: float = 1.1e-10    # base.py:148
+    # frames of a run (examples/*/run.sh --n_timesteps)
+    n_timesteps: int = 200
+    # the CLI re-fits the source while 0 < t < src_duration (main.py:164)
+    src_duration: int = 1               # config.py --src_duration default
     reset_wts: bool = True
     # the reference halves the 2D karman family's ramp width after the
     # initial fit (main.py:161-163); karman3d keeps it
@@ -274,7 +279,7 @@ SCENES = {
     "taylorgreen": SceneSpec(
         name="taylorgreen", dim=2,
         scene_size=(TG_LO, TG_HI, TG_LO, TG_HI),
-        num_hidden_layers=6, hidden_features=64, dt=0.001,
+        num_hidden_layers=6, hidden_features=64, dt=0.001, n_timesteps=100,
         sample_resolution=64, wost_resolution=512, vel_vis_resolution=60,
         bdry_eps=1e-3, reset_wts=False,
         _boundary_builder=_tg_boundary, _source_builder=_tg_source),
@@ -308,10 +313,15 @@ SCENES = {
     # examples/karman3d/run.sh; the cylinder of src/3d/main.py:92-94
     "karman3d": SceneSpec(
         name="karman3d", num_hidden_layers=2, hidden_features=128,
-        karman_vel=0.5, obstacle_center=(0.0, -0.8), obstacle_radius=0.1,
+        karman_vel=0.5, n_timesteps=500, obstacle_center=(0.0, -0.8), obstacle_radius=0.1,
         _source_builder=_karman3d_source,
         _obstacle_sdf_builder=_karman3d_sdf, **_CUBE_SCENE),
 }
+
+
+# the JAX package's scenes that the port does not have yet: the CLI offers
+# them as the JAX CLI does, and get_scene raises for them
+UNPORTED_SCENES = ("jpipe",)
 
 
 def get_scene(name: str) -> SceneSpec:

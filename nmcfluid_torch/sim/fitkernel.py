@@ -201,9 +201,6 @@ def _shapes(params, pool):
 def _check_cuda_inputs(params, cfg, pool):
     """Shapes, device and dtype of a CUDA call (fit_plan checks the
     sizes the kernel takes)."""
-    if cfg.nonlinearity != "sine":
-        raise NotImplementedError(
-            f"fused fit: nonlinearity {cfg.nonlinearity!r} (only 'sine')")
     K, B, D_in, D_out, H, Lh = _shapes(params, pool)
     x, A, c, tgt, w = pool
     want = {"x": (K, B, D_in), "A": (K, B, D_out, D_out),
@@ -297,7 +294,12 @@ def fused_adam_fit(params, cfg: SirenConfig, pool_xactw, n_iters, lr):
     lr: scalar, or an (n_iters,) array of per-iteration learning rates.
     Returns (params, final_loss). A CUDA pool launches the kernel (and
     raises on anything it does not take); a CPU pool runs the plain twin.
+    Other nonlinearities raise on both devices: they take the fresh-batch
+    fit (sim/fluid.py::_fused_supported), as in the JAX package.
     """
+    if cfg.nonlinearity != "sine":
+        raise NotImplementedError(
+            f"fused fit: nonlinearity {cfg.nonlinearity!r} (only 'sine')")
     if pool_xactw[0].is_cuda:
         return _cuda_adam_fit(params, cfg, pool_xactw, n_iters, lr)
     return reference_adam_fit(params, cfg, pool_xactw, n_iters, lr)

@@ -6,13 +6,17 @@ karman3d):
     advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
     project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
              cloud, then fit u(x) to u_prev(x) - grad p(x)
-with `add_source` fitting the initial field once first. Every phase fit
-runs the fused fit (sim/fitkernel.py) on a K-batch pool and then the
-closed-form head solve (`ls_head`); in scenes with `reset_wts` (the
-karman family and the 3D scenes) each phase fit starts from fresh
-weights. On a CUDA device the fit is the hand-written kernel; on the CPU
-its plain twin. The divergence grid is 1000^2 in 2D and vis_resolution^3
-in 3D.
+with `add_source` fitting the initial field once first; adv_ref=True
+doubles both phases (advect dt/2, project, MacCormack advect dt/2,
+project; model_split.py:63-81). A phase fit runs the fused fit
+(sim/fitkernel.py) on a K-batch pool when fit_mode resolves to "fused"
+and no knob needs more (`_fused_supported`: a sine net, no parameter EMA,
+plateau stop, gradient clip or loss trace), else the fresh-batch Adam
+loop (`_adam_fit_single`); both end in the closed-form head solve
+(`ls_head`). In scenes with `reset_wts` (the karman family and the 3D
+scenes) each phase fit starts from fresh weights. On a CUDA device the
+fused fit is the hand-written kernel; on the CPU its plain twin. The
+divergence grid is 1000^2 in 2D and vis_resolution^3 in 3D.
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
@@ -32,13 +36,16 @@ from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             init_siren)
 from ..utils.keys import Key
 from ..wost.gen import estimate_solution_and_gradient_gen
-from ..wost.solver import WalkSettings, WostScene
+from ..wost.solver import WalkSettings, WostScene, check_supported
 from . import sampling
-from .fitkernel import fused_adam_fit
+from .fitkernel import ADAM_B1, ADAM_B2, ADAM_EPS, fused_adam_fit
 
 
 class SimState(NamedTuple):
-    """Everything that persists between timesteps: the network weights."""
+    """Everything that persists between timesteps: the network weights.
+    The JAX package's params_prev and params_tilde equal params outside a
+    step and its step reads neither (the MacCormack fit's tilde is the
+    step's own first advection fit), so they stay implicit."""
     params: list            # velocity_field
     P: torch.Tensor         # mean pressure (base.py:305)
     eps: float              # boundary ramp width
@@ -49,6 +56,12 @@ class SimState(NamedTuple):
 class FitStats(NamedTuple):
     iters: int
     loss: torch.Tensor
+    # what ran the fit: "fit kernel", "plain twin" (the kernel's CPU
+    # version) or "fresh-batch" (_adam_fit_single's loop)
+    executor: str
+    # the minibatch loss every `loss_trace` iterations (--vis_frequency),
+    # or None
+    trace: Optional[torch.Tensor] = None
 
 
 def _unsupported(flag, value):
@@ -60,7 +73,12 @@ class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
     Takes the JAX package's constructor arguments; those not ported yet
-    raise NotImplementedError when set. `device` is
+    (projection, fit_ensemble, wost_source, mesh, and walk settings or an
+    absorption the walk does not take) raise NotImplementedError here.
+    fit_mode "auto" resolves to "fused" on every device (the JAX package
+    picks "xla" on the CPU, where its kernel would run interpreted; the
+    port's CPU twin is plain PyTorch). The JAX package's fit_unroll is
+    not taken: its results are the same for any value. `device` is
     where every tensor is created: None means the GPU, and raises
     RuntimeError without one; device="cpu" asks for the CPU."""
 
@@ -85,19 +103,20 @@ class NeuralFluid:
                  mesh=None,
                  device=None):
         for flag, value, default in (
-                ("adv_ref", adv_ref, False), ("projection", projection, "wost"),
+                ("projection", projection, "wost"),
                 ("fit_ensemble", fit_ensemble, 1),
                 ("wost_source", wost_source, "grid"), ("mesh", mesh, None)):
             if value != default:
                 _unsupported(flag, value)
-        if fit_mode not in ("auto", "fused"):
-            # the fresh-batch fit (_adam_fit_single) is not ported yet
-            _unsupported("fit_mode", fit_mode)
+        if fit_mode not in ("auto", "fused", "xla"):
+            raise ValueError(f"NeuralFluid: unknown fit_mode {fit_mode!r}")
         if lr_schedule not in ("constant", "cosine", "tail"):
             raise ValueError(f"NeuralFluid: unknown lr_schedule "
                              f"{lr_schedule!r}")
         self.scene = scene
         self.device = get_device(device)
+        self.adv_ref = bool(adv_ref)
+        self.fit_mode = "fused" if fit_mode == "auto" else fit_mode
         self.lr_schedule = lr_schedule
         self.param_ema = param_ema
         self.grad_clip = grad_clip
@@ -124,13 +143,8 @@ class NeuralFluid:
             scene.dim, scene.dim,
             num_hidden_layers=scene.num_hidden_layers,
             hidden_features=scene.hidden_features,
-            nonlinearity=scene.nonlinearity)
-        if not _fused_supported(self):
-            # the JAX package falls back to _adam_fit_single here
-            raise NotImplementedError(
-                "NeuralFluid: param_ema, fit_plateau, grad_clip, loss_trace "
-                "and non-sine networks need the fresh-batch fit "
-                "(_adam_fit_single), which is not ported yet")
+            nonlinearity=scene.nonlinearity,
+            normal_init_std=0.1 if scene.dim == 2 else 1.0)
         self.q = analytic2d if scene.dim == 2 else analytic3d
         self.boundary = scene.boundary.to(self.device)
         ss = scene.scene_size
@@ -141,6 +155,9 @@ class NeuralFluid:
         self._wost_scene = WostScene(
             dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
             absorption=scene.absorption)
+        # raise now, not at the first walk, for what the walk does not take
+        check_supported(self._wost_scene, self.walk_settings)
+        self._wost_scene.greens()
         self._bbox_lo = torch.tensor(ss[0::2], dtype=torch.float32,
                                      device=self.device)
         self._bbox_hi = torch.tensor(ss[1::2], dtype=torch.float32,
@@ -228,18 +245,37 @@ class NeuralFluid:
         return state._replace(params=params, key=key)
 
     def step(self, state: SimState) -> SimState:
-        """One operator-split timestep (model_split.py:44-82)."""
+        """One operator-split timestep (model_split.py:44-82); with adv_ref
+        the reflection variant (:63-81): advect(dt/2), project, MacCormack
+        advect(dt/2) against the first advection fit, project."""
         state = state._replace(timestep=state.timestep + 1)
-        key, k1, k2, k3, k4 = state.key.split(5)
         prev = state.params
-        p1, st_a = self._timed(
-            "advect_fit", _fit_advect, self, self._phase_init(state, k1),
-            prev, self.scene.dt, k2, state.eps, state.timestep)
-        p2, P, st_p = self._project(state, p1, p1, k3, k4)
-        self._last_stats = (st_a, st_p)
-        return state._replace(params=p2, P=P, key=key)
+        dt = self.scene.dt
 
-    def _project(self, state, params_init, prev, k_wost, k_fit):
+        def advect(params_init, prev, tilde, dt, flag, k, name="advect_fit"):
+            return self._timed(name, _fit_advect, self, flag, params_init,
+                               prev, tilde, dt, k, state.eps, state.timestep)
+
+        if not self.adv_ref:
+            key, k1, k2, k3, k4 = state.key.split(5)
+            p1, st_a = advect(self._phase_init(state, k1), prev, prev, dt,
+                              False, k2)
+            out, P, st_p = self._project(state, p1, p1, k3, k4)
+            self._last_stats = (st_a, st_p)
+        else:
+            key, k1, k2, k3, k4, k5, k6, k7, k8 = state.key.split(9)
+            p1, st1 = advect(self._phase_init(state, k1), prev, prev, dt / 2,
+                             False, k2)
+            p2, P, st2 = self._project(state, p1, p1, k3, k4)
+            p3, st3 = advect(self._phase_init(state, k5), p2, p1, dt / 2,
+                             True, k6, name="advect_fit2")
+            out, P, st4 = self._project(state, p3, p3, k7, k8,
+                                        fit_name="project_fit2")
+            self._last_stats = (st1, st2, st3, st4)
+        return state._replace(params=out, P=P, key=key)
+
+    def _project(self, state, params_init, prev, k_wost, k_fit,
+                 fit_name="project_fit"):
         """Pressure solve + projection fit (model_split.py:245-284)."""
         div_grid = self._timed("div_grid", _divergence_grid, self, prev,
                                state.eps, state.timestep)
@@ -254,11 +290,16 @@ class NeuralFluid:
             # 1), the key of the fit's pool batch 1 (reproduced, not fixed)
             params_init = self._phase_init(state, k_fit.fold_in(1))
         params, stats = self._timed(
-            "project_fit", _fit_project, self, params_init, prev, pts,
+            fit_name, _fit_project, self, params_init, prev, pts,
             grad_p, k_fit, state.eps, state.timestep)
         return params, P, stats
 
     # ------------------------------------------------------------- measures
+
+    def sample_velocity_grid(self, state, resolution, with_boundary=True):
+        """The velocity on a uniform grid (base.py:253-265)."""
+        return _velocity_grid(self, state.params, state.eps, state.timestep,
+                              resolution, with_boundary)
 
     def kinetic_energy(self, state, resolution=None):
         """0.5 mean u^2 + P over the cell-centered vel_vis grid
@@ -278,6 +319,100 @@ def _velocity_grid(fluid, params, eps, t, resolution, with_boundary):
 
 
 # ------------------------------------------------------------ phase fits
+
+
+def _adam_fit_single(fluid, params0, key, batch_fn):
+    """One phase fit (fluid.py:481-605): the fused fit when fit_mode is
+    "fused" and `_fused_supported`, else the fresh-batch Adam loop, the
+    reference's _training_loop (base.py:129-152): a fresh minibatch from
+    key.fold_in(i) every iteration, optax's Adam (after optax's global-norm
+    clip when grad_clip > 0) with the lr schedule, until max_n_iters or
+    the loss is <= early_stop_loss; param_ema returns the Polyak average
+    (exact tracking until 80% of max_n_iters); fit_plateau stops at the
+    end of a window that improved the smoothed loss by < 0.5%; loss_trace
+    records the loss every N iterations. Then ls_head.
+
+    Each iteration is JAX's predicated step: `live` is a device flag and a
+    dead iteration changes nothing, so the count of live iterations is
+    JAX's. The host reads the flag every _STOP_CHECK iterations only, to
+    leave the loop early without a sync each iteration."""
+    if fluid.fit_mode == "fused" and _fused_supported(fluid):
+        return _fused_fit(fluid, params0, key, batch_fn)
+    n, dim = fluid.max_n_iters, fluid.scene.dim
+    tol = fluid.scene.early_stop_loss
+    gamma, plateau, every = (fluid.param_ema, fluid.fit_plateau,
+                             fluid.loss_trace)
+    ema_start = int(n * 0.8)
+    p_decay, p_rel = 1.0 - 2.0 / max(2, plateau), 5e-3
+    lr = _fit_lr_array(fluid)
+    lrs = lr.tolist() if isinstance(lr, torch.Tensor) else [lr] * n
+    leaves = [t for pair in params0 for t in pair]
+    sizes = [t.numel() for t in leaves]
+
+    def unflat(flat):
+        parts = [p.view(t.shape) for p, t in zip(flat.split(sizes), leaves)]
+        return list(zip(parts[0::2], parts[1::2]))
+
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    ema = flat
+    m, v = torch.zeros_like(flat), torch.zeros_like(flat)
+    # the bias corrections 1 - b^(i+1) in float32, as host scalars
+    steps = torch.arange(1, n + 1)
+    bc1s = (1.0 - torch.tensor(ADAM_B1) ** steps).tolist()
+    bc2s = (1.0 - torch.tensor(ADAM_B2) ** steps).tolist()
+    dev = flat.device
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    loss = torch.full((), math.inf, device=dev)
+    trace = (torch.zeros(-(-n // every), device=dev) if every else None)
+    ema_loss = ref_loss = loss
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(n):
+        live = (loss > tol) & ~stop
+        if i % _STOP_CHECK == 0 and i > 0 and not bool(live):
+            break
+        x, target, w = batch_fn.batch(key.fold_in(i))
+        with torch.enable_grad():
+            p = flat.detach().requires_grad_(True)
+            new_loss = _batch_loss(batch_fn, unflat(p), x, target, w, dim)
+            g, = torch.autograd.grad(new_loss, p)
+        new_loss = new_loss.detach()
+        if fluid.grad_clip > 0.0:
+            # optax.clip_by_global_norm: the norm summed leaf by leaf
+            norm = torch.sqrt(sum(torch.sum(gl * gl) for gl in g.split(sizes)))
+            g = torch.where(norm < fluid.grad_clip, g,
+                            (g / norm) * fluid.grad_clip)
+        new_m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+        new_v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+        new_flat = flat - lrs[i] * ((new_m / bc1s[i])
+                                    / (torch.sqrt(new_v / bc2s[i]) + ADAM_EPS))
+        if gamma > 0.0:
+            new_ema = (gamma * ema + (1.0 - gamma) * new_flat
+                       if i >= ema_start else new_flat)
+            ema = torch.where(live, new_ema, ema)
+        flat = torch.where(live, new_flat, flat)
+        m = torch.where(live, new_m, m)
+        v = torch.where(live, new_v, v)
+        loss = torch.where(live, new_loss, loss)
+        count = count + live.to(torch.int64)
+        if every and i % every == 0:
+            trace[i // every] = torch.where(live, new_loss, trace[i // every])
+        if plateau > 0:
+            new_ema_loss = (new_loss if i == 0 else
+                            p_decay * ema_loss + (1.0 - p_decay) * new_loss)
+            if (i + 1) % plateau == 0:
+                flat_window = new_ema_loss >= ref_loss * (1.0 - p_rel)
+                stop = torch.where(live, flat_window, stop)
+                ref_loss = torch.where(live, new_ema_loss, ref_loss)
+            ema_loss = torch.where(live, new_ema_loss, ema_loss)
+    out = unflat(ema if gamma > 0.0 else flat)
+    if fluid.ls_head > 0:
+        out = _ls_head_solve(fluid, out, key, batch_fn)
+    return out, FitStats(iters=int(count), loss=loss, trace=trace,
+                         executor="fresh-batch")
+
+
+# iterations between the fresh-batch loop's host reads of its stop flag
+_STOP_CHECK = 32
 
 
 def _fused_supported(fluid):
@@ -339,7 +474,9 @@ def _fused_fit(fluid, params0, key, batch_fn):
             + ev[0].elapsed_time(ev[1]) / 1e3)
     if fluid.ls_head > 0:
         params = _ls_head_solve(fluid, params, key, batch_fn)
-    return params, FitStats(iters=fluid.max_n_iters, loss=loss)
+    return params, FitStats(
+        iters=fluid.max_n_iters, loss=loss,
+        executor="fit kernel" if pool[0].is_cuda else "plain twin")
 
 
 def _batch_loss(batch_fn, params, x, target, w, dim):
@@ -423,9 +560,12 @@ class _SourceBatches(_PhaseBatches):
 
 
 class _AdvectBatches(_PhaseBatches):
-    def __init__(self, fluid, prev, dt, eps, t):
+    """flag=True is the MacCormack target 2 u_prev - u_tilde at the back
+    trace (model_split.py:106)."""
+
+    def __init__(self, fluid, flag, prev, tilde, dt, eps, t):
         super().__init__(fluid, eps, t)
-        self.prev, self.dt = prev, dt
+        self.flag, self.prev, self.tilde, self.dt = flag, prev, tilde, dt
 
     def batch(self, kb):
         f = self.fluid
@@ -433,7 +573,10 @@ class _AdvectBatches(_PhaseBatches):
         u_prev = self.velocity(self.prev, pts)
         back = torch.clamp(pts - u_prev * self.dt, f._bbox_lo,
                            f._bbox_hi)              # model_split.py:99-100
-        return pts, self.velocity(self.prev, back), w
+        adv = self.velocity(self.prev, back)
+        if self.flag:
+            adv = 2.0 * adv - self.velocity(self.tilde, back)
+        return pts, adv, w
 
 
 class _ProjectBatches(_PhaseBatches):
@@ -452,23 +595,26 @@ class _ProjectBatches(_PhaseBatches):
 def _fit_source(fluid, params0, key, eps, t):
     """_add_source (base.py:313-335): fit u to the scene's initial field."""
     with torch.no_grad():
-        return _fused_fit(fluid, params0, key, _SourceBatches(fluid, eps, t))
+        return _adam_fit_single(fluid, params0, key,
+                                _SourceBatches(fluid, eps, t))
 
 
-def _fit_advect(fluid, params0, prev, dt, key, eps, t):
-    """_advect_velocity (model_split.py:87-120): semi-Lagrangian fit."""
+def _fit_advect(fluid, flag, params0, prev, tilde, dt, key, eps, t):
+    """_advect_velocity (model_split.py:87-120): semi-Lagrangian fit;
+    flag=True is the MacCormack correction against tilde."""
     with torch.no_grad():
-        return _fused_fit(fluid, params0, key,
-                          _AdvectBatches(fluid, prev, dt, eps, t))
+        return _adam_fit_single(fluid, params0, key,
+                                _AdvectBatches(fluid, flag, prev, tilde, dt,
+                                               eps, t))
 
 
 def _fit_project(fluid, params0, prev, pressure_pts, grad_p, key, eps, t):
     """Projection fit (model_split.py:274-284): minibatch the fixed
     pressure cloud, target u_prev - grad p."""
     with torch.no_grad():
-        return _fused_fit(fluid, params0, key,
-                          _ProjectBatches(fluid, prev, pressure_pts, grad_p,
-                                          eps, t))
+        return _adam_fit_single(fluid, params0, key,
+                                _ProjectBatches(fluid, prev, pressure_pts,
+                                                grad_p, eps, t))
 
 
 # ----------------------------------------------------- projection stages

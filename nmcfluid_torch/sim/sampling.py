@@ -47,12 +47,29 @@ def random_points(key, n, scene_size, device="cpu"):
 
 def training_points(key, n, scene, pattern="random", resolution=None,
                     device="cpu"):
-    """sample_in_training's 'random' pattern (base.py:226-251). Returns
-    (pts, valid)."""
-    if pattern != "random":
-        raise NotImplementedError(
-            f"sample pattern {pattern!r}: only 'random' is ported")
-    return fluid_points(key, n, scene, device=device)
+    """sample_in_training's three patterns (base.py:226-251): 'random',
+    'uniform' (the cell-centered grid with the box faces) and
+    'random+uniform' (half each). The grid is tiled and truncated to n
+    points, as the JAX package keeps its shapes static. Returns (pts,
+    valid)."""
+    if pattern == "random":
+        return fluid_points(key, n, scene, device=device)
+    if pattern not in ("uniform", "random+uniform"):
+        raise ValueError(f"sample pattern {pattern!r}")
+    grid = uniform_grid(scene.scene_size, resolution or
+                        int(round(n ** (1.0 / scene.dim))),
+                        with_boundary=True, device=device)
+    grid = grid.reshape(-1, scene.dim)
+
+    def tiled(m):
+        return grid.repeat(-(-m // grid.shape[0]), 1)[:m]
+    if pattern == "uniform":
+        pts = tiled(n)
+        return pts, scene.fluid_mask(pts)
+    half = n // 2
+    r, rv = fluid_points(key, n - half, scene, device=device)
+    g = tiled(half)
+    return torch.cat([r, g]), torch.cat([rv, scene.fluid_mask(g)])
 
 
 def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):

@@ -1,1 +1,1 @@
-"""The Taylor-Green velocity error metric."""
+"""Passive density transport and the Taylor-Green error metric."""

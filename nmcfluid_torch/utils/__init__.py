@@ -1,1 +1,1 @@
-"""Random keys and checkpoints."""
+"""Random keys, checkpoints, visualization and the CUDA build."""

@@ -5,6 +5,7 @@ per step, `ckpt_step_t{NNN}.npz`, holding the parameter leaves in order
 written by either package loads in the other.
 """
 import os
+import re
 
 import numpy as np
 import torch
@@ -39,3 +40,15 @@ def load_ckpt(model_dir, params_like, step_or_name):
     return [(leaves[2 * i], leaves[2 * i + 1])
             for i in range(len(params_like))], t
 
+
+
+def latest_step(model_dir):
+    """Highest saved step number, or -1."""
+    best = -1
+    if not os.path.isdir(model_dir):
+        return best
+    for f in os.listdir(model_dir):
+        m = re.match(r"ckpt_step_t(\d+)\.npz$", f)
+        if m:
+            best = max(best, int(m.group(1)))
+    return best

@@ -9,6 +9,7 @@ interface:
     key.split(n)                       -> list of n keys
     key.fold_in(data)                  -> key
     key.uniform(shape, device, lo, hi) -> float32 tensor in [lo, hi)
+    key.normal(shape, device)          -> float32 tensor, standard normal
     key.randint(shape, lo, hi, device) -> int64 tensor in [lo, hi)
     key.stream_seed()                  -> uint32 seed for ops.fastrand
 
@@ -63,6 +64,10 @@ class Key:
         u = torch.rand(tuple(shape), generator=self._generator(),
                        dtype=torch.float32)
         return (minval + u * (maxval - minval)).to(device)
+
+    def normal(self, shape, device):
+        return torch.randn(tuple(shape), generator=self._generator(),
+                           dtype=torch.float32).to(device)
 
     def randint(self, shape, lo, hi, device):
         return torch.randint(lo, hi, tuple(shape), generator=self._generator(),

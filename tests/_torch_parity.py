@@ -6,6 +6,9 @@ every split, fold_in and draw through jax.random, handing the numbers to
 the port as torch tensors. With it the port walks the same random numbers
 as the JAX package, so whole steps can be held against each other.
 """
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +41,10 @@ class JaxKey:
         u = jax.random.uniform(self.key, tuple(shape), jnp.float32,
                                minval, maxval)
         return torch.from_numpy(np.asarray(u).copy()).to(device)
+
+    def normal(self, shape, device):
+        z = jax.random.normal(self.key, tuple(shape), jnp.float32)
+        return torch.from_numpy(np.asarray(z).copy()).to(device)
 
     def randint(self, shape, lo, hi, device):
         r = jax.random.randint(self.key, tuple(shape), lo, hi)
@@ -135,3 +142,101 @@ def chained_runs(scene, sizes, halve_eps=False):
     finally:
         mp.undo()
     return jf, js, tf, ts, logs
+
+
+# ------------------------------------------------- the command-line tests
+
+# tiny sizes of the CLI tests (tests/test_torch_run*.py), both CLIs on the
+# fresh-batch fit
+CLI_TINY = ["--n_timesteps", "1", "--max_n_iters", "20",
+            "--sample_resolution", "8", "--wost_resolution", "16",
+            "--div_resolution", "16", "--n_walks", "48",
+            "--vis_resolution", "16", "--vel_vis_resolution", "8",
+            "--density_resolution", "16", "--fit_mode", "xla"]
+
+
+def capture_frames(mp, vis, frames):
+    """Record every scalar frame a package's vis module draws, by file
+    name, and still draw it."""
+    draw = vis.draw_scalar_field2d
+
+    def wrapped(arr, path, *a, **kw):
+        frames[os.path.basename(path)] = np.asarray(arr)
+        return draw(arr, path, *a, **kw)
+    mp.setattr(vis, "draw_scalar_field2d", wrapped)
+
+
+def replay_key_seam(mp):
+    """The port's CLI keys (run.Key, replay.Key) replay jax.random."""
+    import nmcfluid_torch.replay as treplay
+    import nmcfluid_torch.run as trun
+    mp.setattr(trun, "Key", JaxKey)
+    mp.setattr(treplay, "Key", JaxKey)
+
+
+def cli_pair(root, scene, extra):
+    """Both CLIs on CLI_TINY + extra, the JAX one into root/jax and the
+    port's (--device cpu, the key seam replaying jax.random) into
+    root/torch. Returns (JAX experiment dir, port experiment dir,
+    {"jax": frames, "torch": frames}) with the scalar frames each drew."""
+    import nmcfluid.run as jrun
+    import nmcfluid.utils.vis as jvis
+    import nmcfluid_torch.run as trun
+    import nmcfluid_torch.utils.vis as tvis
+    frames = {"jax": {}, "torch": {}}
+    with pytest.MonkeyPatch.context() as mp:
+        capture_frames(mp, jvis, frames["jax"])
+        capture_frames(mp, tvis, frames["torch"])
+        replay_key_seam(mp)
+        args = [scene] + CLI_TINY + extra
+        jrun.main(args + ["--out", str(root / "jax")])
+        trun.main(args + ["--out", str(root / "torch"), "--device", "cpu"])
+    return root / "jax" / scene, root / "torch" / scene, frames
+
+
+def ckpt_leaves(path):
+    """(leaves, timestep) of a checkpoint file of either package."""
+    with np.load(path) as z:
+        n = len([k for k in z.files if k.startswith("leaf_")])
+        return [z[f"leaf_{i}"] for i in range(n)], int(z["timestep"])
+
+
+def tree_files(root):
+    """Every file under root, relative, sorted."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def assert_ckpts_match(jdir, tdir, atols):
+    """The checkpoints after add_source and after the step, leaf by leaf
+    at rtol 2e-4 and atols[i] (the last atol for the leaves past the
+    list)."""
+    for t in (0, 1):
+        name = f"model/ckpt_step_t{t:03d}.npz"
+        (lj, tj), (lt, tt) = ckpt_leaves(jdir / name), ckpt_leaves(
+            tdir / name)
+        assert tj == tt == t and len(lj) == len(lt)
+        for i, (a, b) in enumerate(zip(lt, lj)):
+            np.testing.assert_allclose(a, b, rtol=2e-4,
+                                       atol=atols[min(i, len(atols) - 1)])
+
+
+def assert_same_files(jdir, tdir):
+    """The same files, and the same numbers in the text outputs: loss
+    traces, energy.txt and error_ours.txt at rtol 1e-2. The projection
+    fits' targets carry grad p at the walk's rtol 2e-3 (tests/
+    test_gen.py), and a loss is a square of such residuals. energy.txt
+    adds the mean pressure P, a mean of p, at p's atol 2e-5 there."""
+    assert tree_files(tdir) == tree_files(jdir)
+    n_text = 0
+    for rel in tree_files(jdir):
+        if rel.startswith("txt/loss_") or rel in ("energy.txt",
+                                                  "error_ours.txt"):
+            np.testing.assert_allclose(
+                np.loadtxt(tdir / rel), np.loadtxt(jdir / rel), rtol=1e-2,
+                atol=2e-5 if rel == "energy.txt" else 0)
+            n_text += 1
+    assert n_text >= 3
+    cfg_t = json.loads((tdir / "config.json").read_text())
+    cfg_j = json.loads((jdir / "config.json").read_text())
+    assert set(cfg_t) - set(cfg_j) == {"device"}

@@ -23,6 +23,7 @@ from _torch_parity import JaxKey, chained_runs, params_np, to_np
 
 import nmcfluid_torch.sim.fluid as tfluid
 from nmcfluid_torch.scenes import get_scene as t_get_scene
+from nmcfluid_torch.wost.solver import WalkSettings
 
 TINY = dict(sample_resolution=8, wost_resolution=16, div_resolution=16,
             n_walks=48, max_n_iters=20, fit_pool=4)
@@ -89,15 +90,18 @@ def test_final_state(runs):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("over", [dict(adv_ref=True),
+@pytest.mark.parametrize("over", [dict(fit_ensemble=2),
                                   dict(projection="bem"),
-                                  dict(fit_mode="xla"),
-                                  dict(grad_clip=1.0),
-                                  dict(param_ema=0.99),
+                                  dict(mesh=2),
+                                  dict(walk_settings=WalkSettings(
+                                      algo="pool")),
+                                  dict(projection="spectral"),
                                   dict(scene="jpipe"),
                                   dict(wost_source="net")])
 def test_unported_flags_raise(over):
-    """Flags and scenes not ported yet raise, naming themselves."""
+    """Flags and scenes not ported yet raise, naming themselves (adv_ref,
+    fit_mode="xla", grad_clip and param_ema are ported: see
+    tests/test_torch_fit_single.py and tests/test_torch_run.py)."""
     over = dict(over)
     scene = over.pop("scene", "taylorgreen")
     with pytest.raises(NotImplementedError,

@@ -158,3 +158,30 @@ def test_gen_unported_settings_raise():
                  dict(solve_double_sided=True), dict(adaptive_walks=1.0)):
         with pytest.raises(NotImplementedError):
             t_gen(scene, TSettings(**over), torch.from_numpy(PTS), Key(0), 8)
+
+
+def test_port_key_walk_error_matches_jax_key():
+    """The port's own key (utils/keys.py) gives the walk the same error as
+    the JAX-replay key on the manufactured problem: 256 points x 500
+    walks, two keys of each class; each RMS error of p and of grad p
+    within [0.8, 1.25] x the JAX-replay keys' mean (the four read 0.0105 to
+    0.0117 for p, 0.053 to 0.058 for grad p). A key class whose streams
+    were correlated would read several times more."""
+    ts = _manufactured("torch")
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(0.1 * L, 0.9 * L, (256, 2)).astype(
+        np.float32))
+    x, y = pts[:, 0], pts[:, 1]
+    p_true = torch.cos(KX * x) * torch.cos(KX * y)
+    g_true = torch.stack([-KX * torch.sin(KX * x) * torch.cos(KX * y),
+                          -KX * torch.cos(KX * x) * torch.sin(KX * y)], -1)
+
+    def rms(key):
+        p, g, _ = t_gen(ts, TSettings(algo="gen"), pts, key, 500)
+        return (float(((p - p_true) ** 2).mean().sqrt()),
+                float(((g - g_true) ** 2).mean().sqrt()))
+    jax_rms = np.mean([rms(JaxKey(jax.random.PRNGKey(s))) for s in (3, 9)],
+                      axis=0)
+    for seed in (3, 12345):
+        for got, want in zip(rms(Key(seed)), jax_rms):
+            assert 0.8 * want <= got <= 1.25 * want
