@@ -26,14 +26,21 @@
    get_scene, NeuralFluid(device="cuda"), init_state, add_source and two
    steps, with the per-stage wall-clock (and the fit kernel's own device
    time, "fit_kernel") and the Taylor-Green velocity error of each step,
-   and checks that every phase fit ran on the kernel, one launch a fit.
+   and checks that every phase fit ran on the kernel, one launch a fit;
+   then one step from docs/tg_stage_ckpt (the port's seed 1 after step
+   10), stage by stage, each stage's added error held to the JAX
+   package's from the same state (tg_stage_check).
 7. The paths of PATHS, each through path_phase: steps 4 and 5 at the
    scene's shapes (the float64 twin beside the f32 one; a 24^3 grid for
    the small input in 3D), then get_scene, NeuralFluid(device="cuda"),
    init_state, add_source and the steps at the shipped width: karman (2 x
    128 SIREN, the channel with its circle, the ramp width halved after
    add_source as the JAX CLI does, one step, a 1000 x 399 divergence
-   grid, 512^2 pressure points), then the 3D scenes in the closed cube:
+   grid, 512^2 pressure points), jpipe (2 x 128, the walk over its
+   segment soup, the ramp kept, one step, a 1000^2 grid; its fit check
+   needs pool points with an off-diagonal A and holds the float64 twin at
+   JPIPE_ATOL64, its small-input walk nine points in ten at the gen
+   tolerance), then the 3D scenes in the closed cube:
    smoke (5 x 64, two steps), karman3d (2 x 128), smoke_obs and
    vortex_collide (5 x 64), one step each, with an 80^3 divergence grid
    and 256^2 pressure points; all with 500 walks, 10,000-iteration fits
@@ -46,7 +53,8 @@
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
-path: taylorgreen, karman, smoke, karman3d, smoke_obs, vortex_collide),
+path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
+vortex_collide, and the CLI's two runs),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -77,20 +85,29 @@ def _sync():
 POOL_SEEDS = (0, 1, 2)
 
 
-def check_fit_kernel(fluid, fk, tfluid, params, atol):
+def check_fit_kernel(fluid, fk, tfluid, params, atol, need_offdiag=False,
+                     atol64=None):
     """Kernel vs plain twin on K = 8 pools of the scene's shapes, one for
     each of POOL_SEEDS, 25 iterations at lr 1e-3: params to rtol 2e-4 /
     `atol` (1e-3 at Taylor-Green, else PATHS's) and loss to rtol 1e-2; a
     second call must agree bit for bit; the kernel is held to the twin in
-    float64 at the same tolerance, and both distances from float64 are
-    printed. Then the kernel as the main path
-    runs it: a max_n_iters fit on a K = fit_pool pool with the main path's
-    lr. Returns (max_abs_err, kernel ms/iter, twin ms/iter)."""
+    float64 at `atol64` (default `atol`), and both distances from float64
+    are printed, with the pool points whose hard-BC map A has off-diagonal
+    entries (jpipe's elbow; need_offdiag requires some). Then the kernel
+    as the main path runs it: a max_n_iters fit on a K = fit_pool pool
+    with the main path's lr. Returns (max_abs_err, kernel ms/iter, twin
+    ms/iter)."""
     from nmcfluid_torch.sim.fitprobe import scene_pool
     cfg = fluid.siren_cfg
     err = 0.0
     for seed in POOL_SEEDS:
         pool = scene_pool(fluid, 8, seed=seed)
+        A = pool[1]
+        eye = torch.eye(A.shape[-1], device=A.device)
+        n_off = int(((A * (1 - eye)).abs().amax(dim=(-1, -2)) > 0).sum())
+        if need_offdiag and n_off == 0:
+            raise AssertionError(f"{fluid.scene.name} pool seed {seed}: no "
+                                 f"point with an off-diagonal A")
         p_k, l_k = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
         p_k2, l_k2 = fk.fused_adam_fit(params, cfg, pool, 25, 1e-3)
         _sync()
@@ -106,7 +123,7 @@ def check_fit_kernel(fluid, fk, tfluid, params, atol):
             for u, v, w, x in ((a, c, e, g), (b, d, f, h)):
                 torch.testing.assert_close(u, v, rtol=2e-4, atol=atol)
                 torch.testing.assert_close(u.double(), x, rtol=2e-4,
-                                           atol=atol)
+                                           atol=atol64 or atol)
                 err_s = max(err_s, float((u - v).abs().max()))
                 err_k64 = max(err_k64, float((u.double() - x).abs().max()))
                 err_r64 = max(err_r64, float((v.double() - x).abs().max()))
@@ -121,7 +138,10 @@ def check_fit_kernel(fluid, fk, tfluid, params, atol):
         err = max(err, err_s)
         print(f"{fluid.scene.name} pool seed {seed}: fit kernel vs twin "
               f"{err_s:.3e}; kernel and twin against the float64 twin "
-              f"{err_k64:.3e} and {err_r64:.3e} (atol {atol:g})", flush=True)
+              f"{err_k64:.3e} and {err_r64:.3e} (atol {atol:g}, float64 "
+              f"{atol64 or atol:g}); {n_off} "
+              f"of {A.shape[0] * A.shape[1]} points with an off-diagonal A",
+              flush=True)
     # the main path's fit: K = fit_pool pool, max_n_iters iterations, its lr
     pool = scene_pool(fluid, fluid.fit_pool, seed=1)
     lr = tfluid._fit_lr_array(fluid)
@@ -178,10 +198,34 @@ def fit_build_report(log, plan, threads):
     return kernels
 
 
+def _walk_close(name, got, want, spread, rtol, atol, share):
+    """Every point at (rtol, atol) when share is 1; else at least `share`
+    of them, and the others within four times the walk's spread (the RMS
+    difference of two keys' estimates over sqrt 2). On a segment soup a
+    walker on a wall decides whether that wall's end vertices are
+    silhouettes by the sign of a rounding error, so an ulp of another sum
+    order sends a few walks elsewhere on either device
+    (tests/test_torch_jpipe.py::_walk_close)."""
+    diff = (got - want).abs()
+    close = (diff <= atol + rtol * want.abs()).reshape(diff.shape[0], -1)
+    close = close.all(-1)
+    if share >= 1.0:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        return
+    far = diff.reshape(diff.shape[0], -1)[~close]
+    frac = float(close.float().mean())
+    if not (frac >= share and bool((far <= 4.0 * spread).all())):
+        raise AssertionError(f"{name}: {frac:.3f} of the points within the "
+                             f"gen tolerance (need {share}), the others up "
+                             f"to {float(far.max()):.3e} (4 x the walk's "
+                             f"spread {spread:.3e})")
+
+
 def check_small_input(tfluid, scene, Key, eps, div_resolution=64):
     """The divergence grid and one WoSt chunk on the card against the same
     stage on the CPU, on a small input with the same keys, at ramp width
-    eps."""
+    eps. On a segment soup (jpipe) nine points in ten are held at the gen
+    tolerance and the rest within the walk's noise (_walk_close)."""
     kw = dict(sample_resolution=16, wost_resolution=16,
               div_resolution=div_resolution, n_walks=48, max_n_iters=50,
               fit_pool=8)
@@ -198,12 +242,24 @@ def check_small_input(tfluid, scene, Key, eps, div_resolution=64):
     torch.testing.assert_close(pts_g.cpu(), pts_c, rtol=2e-7, atol=0)
     if not torch.equal(val_g.cpu(), val_c):
         raise AssertionError("valid flags of the pressure cloud differ")
+    from nmcfluid_torch.geometry.soup2d import Seg2D
+    soup = isinstance(scene.boundary, Seg2D)
+    share, spread_p, spread_g = 1.0, 0.0, 0.0
+    if soup:
+        _, _, p_c2, g_c2 = tfluid._pressure_solve(cpu, (div_g.cpu(),),
+                                                  Key(12))
+        share = 0.9
+        spread_p = float((p_c - p_c2).pow(2).mean().sqrt()) / 2 ** 0.5
+        spread_g = float((g_c - g_c2).pow(2).mean().sqrt()) / 2 ** 0.5
     # gen tolerances (tests/test_gen.py): same streams, other sum order
-    torch.testing.assert_close(p_g.cpu(), p_c, rtol=2e-4, atol=2e-5)
-    torch.testing.assert_close(g_g.cpu(), g_c, rtol=2e-3, atol=2e-4)
+    _walk_close(f"{scene.name} p", p_g.cpu(), p_c, spread_p, 2e-4, 2e-5,
+                share)
+    _walk_close(f"{scene.name} grad p", g_g.cpu(), g_c, spread_g, 2e-3,
+                2e-4, share)
     print(f"{scene.name} small input: divergence grid "
-          f"{tuple(div_g.shape)} and WoSt chunk on the card match the CPU",
-          flush=True)
+          f"{tuple(div_g.shape)} and WoSt chunk on the card match the CPU"
+          + (" (nine points in ten at the gen tolerance, the rest within "
+             "the walk's noise)" if soup else ""), flush=True)
 
 
 def _fit_bound(cfg, B):
@@ -298,7 +354,7 @@ def _fit_entry(path, fluid, launches, per_frame, err, kernel_ms, plain_ms):
     return {
         "name": "fit_persistent (fused_adam_fit)", "route": "cuda",
         "source": "nmcfluid_torch/csrc/fitkernel.cu",
-        "replaces": "nmcfluid/sim/fitkernel.py:317", "path": path,
+        "replaces": "nmcfluid/sim/fitkernel.py:318", "path": path,
         "launches": launches, "launches_per_frame": per_frame,
         "max_abs_err": err, "ms": kernel_ms, "ms_per": "Adam iteration",
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -411,8 +467,62 @@ def taylor_green_phase(cuda_build):
                              f"{tuple(p.shape)}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
+    tg_stage_check(fluid)
     return (_fit_entry("taylorgreen", fluid, launches, per_frame[0], err,
                        kernel_ms, plain_ms), step1, errors)
+
+
+# jpipe's fits against the float64 twin: on jpipe's pool seed 0 float32
+# itself leaves float64 by 1.7e-5 (the f32 twin; the kernel 1.3e-5), above
+# the 1e-5 that holds the kernel to its f32 twin (the kernel reads up to
+# 4.3e-6 there), which is the check that tells the faulty fits: TF32
+# weight-gradient operands 1.1e-5 to 1.7e-3, one partial row left out
+# 3.7e-3 and up, fast sincos 7.7e-5 on seed 0 (`python -m
+# nmcfluid_torch.sim.fitprobe --scene jpipe --seeds 4 --faults`, PERF.md §6)
+JPIPE_ATOL64 = 5e-5
+
+
+# The JAX package's readings of one Taylor-Green step from the port's
+# seed-1 state after step 10 (docs/tg_stage_ckpt), on the CPU, keys 0 and
+# 1 of `JAX_PLATFORMS=cpu python port_stages.py --ckpt docs/tg_stage_ckpt
+# --step 10`: the TG error before the step, after the advection fit and
+# after the projection fit on one 65,536-point chunk (PERF.md §2).
+JAX_STAGE_READINGS = {"before": 2.7016533e-4,
+                      "after_advect": (2.7729218e-4, 2.7566643e-4),
+                      "project_one_chunk": (3.0735043e-4, 3.0369643e-4)}
+
+
+def tg_stage_check(fluid):
+    """One Taylor-Green step from docs/tg_stage_ckpt on the card, stage by
+    stage (sim/stageprobe.py::probe_step, light: the advection fit, one
+    chunk's walk, the projection fit on it), held to the JAX package's
+    step from the same state: the error the advection fit adds and the
+    error the whole step adds each within [0.5, 2] x the JAX package's
+    mean over its two keys. The port's 50-frame Taylor-Green curves once
+    read as its step adding 3-6 x JAX's error a frame; from the same state
+    it adds what JAX's adds (PERF.md §2), and a step that added 3 x would
+    fail here."""
+    from nmcfluid_torch.sim import stageprobe
+    from nmcfluid_torch.utils.checkpoint import load_ckpt
+    from nmcfluid_torch.utils.keys import Key
+    params, t = load_ckpt("docs/tg_stage_ckpt", fluid.init_state(0).params,
+                          10)
+    res, _ = stageprobe.probe_step(fluid, params, t, Key(0), light=True)
+    before = res["tg_err"]["before"]
+    if abs(before - JAX_STAGE_READINGS["before"]) > 1e-3 * before:
+        raise AssertionError(f"TG stage check: the checkpoint reads {before}"
+                             f", the JAX package {JAX_STAGE_READINGS['before']}")
+    got = {"after_advect": res["tg_err"]["after_advect"] - before,
+           "project_one_chunk": res["project_one_chunk"]["tg_err"] - before}
+    for name, delta in got.items():
+        jax_delta = sum(v - JAX_STAGE_READINGS["before"]
+                        for v in JAX_STAGE_READINGS[name]) / 2
+        print(f"TG stage check, {name}: the port's step adds {delta:.4e} to "
+              f"the error, the JAX package's {jax_delta:.4e} "
+              f"({delta / jax_delta:.2f} x; band [0.5, 2])", flush=True)
+        if not 0.5 * jax_delta <= delta <= 2.0 * jax_delta:
+            raise AssertionError(f"TG stage check, {name}: {delta} vs "
+                                 f"the JAX package's {jax_delta}")
 
 
 # the paths after Taylor-Green: (scene, steps, fit-kernel atol, the fit
@@ -425,6 +535,9 @@ def taylor_green_phase(cuda_build):
 # each scene (port_bounds.py) passes both: errors 3.8e-4 / 0.068 / 3.5e-4
 # / 0.082 / 0.061, ratios after a step 0.996 / 1.39 / 0.974 / 0.372 / 0.61
 # (karman / smoke / karman3d / smoke_obs / vortex_collide; PERF.md §2).
+# jpipe's bounds are karman's: the JAX package's run reads an error of
+# 0.018 and a ratio of 0.96 after a step, the untrained network 1.01 and
+# 0.017, the zero network 1 and 0 (`port_bounds.py jpipe`).
 # The atols: the smoke family's 1e-3 (sim/fitprobe.py); 1e-5 for the
 # 2 x 128 nets, on whose own pools the f32 twin itself leaves up to 5.9e-6
 # of the float64 twin and the kernel up to 5.5e-6, while faulty fits read
@@ -432,6 +545,7 @@ def taylor_green_phase(cuda_build):
 # --faults`, PERF.md).
 PATHS = (
     ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
+    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
     ("smoke", 2, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
     ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
     ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
@@ -484,7 +598,9 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
           f"{plan.n_wbuf} weight buffers, {plan.smem_bytes} B dynamic "
           f"shared memory a block", flush=True)
     err, kernel_ms, plain_ms = check_fit_kernel(
-        fluid, fk, tfluid, fluid.init_state(1).params, atol)
+        fluid, fk, tfluid, fluid.init_state(1).params, atol,
+        need_offdiag=name == "jpipe",
+        atol64=JPIPE_ATOL64 if name == "jpipe" else None)
     check_small_input(tfluid, scene, Key, scene.eps_after_source(
         scene.bdry_eps), div_resolution=64 if scene.dim == 2 else 24)
 

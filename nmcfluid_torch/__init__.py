@@ -6,8 +6,9 @@ reference). Module paths and function names follow the JAX package, so
 counterpart of `nmcfluid/wost/gen.py::estimate_solution_and_gradient_gen`.
 
 It covers the frames of Taylor-Green, of the karman family (an open
-channel with circle obstacles) and of the four shipped 3D scenes (smoke,
-smoke_obs, vortex_collide, karman3d: the closed cube): SIREN velocity
+channel with circle obstacles), of jpipe (a duct walked as a segment
+soup) and of the four shipped 3D scenes (smoke, smoke_obs,
+vortex_collide, karman3d: the closed cube): SIREN velocity
 field (sine, relu, elu or tanh), Adam phase fits (the fused fit: a
 hand-written CUDA kernel on the GPU, its plain PyTorch twin on the CPU;
 or the fresh-batch loop), the divergence grid, the walk-on-stars pressure
@@ -17,8 +18,8 @@ solve with the generation executor, and the density replay. Entry points:
     python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}
     python -m nmcfluid_torch.bench                   time a frame
 
-each on the card unless given `--device cpu`. Scenes and flags not ported
-yet raise NotImplementedError naming the scene or flag.
+each on the card unless given `--device cpu`. Flags not ported yet raise
+NotImplementedError naming the flag.
 `wost/pallas_probe.py` measures the walk's table gather in the four forms
 the TPU tried, each a hand-written CUDA kernel.
 

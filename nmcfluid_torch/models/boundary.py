@@ -8,6 +8,9 @@ ported scenes:
                the inlet band clamped to u = karman_vel, the obstacle
                ramp off the scene's obstacle SDF (the min over its
                circles) and the y-wall ramp (base.py:169-180);
+  jpipe        the inlet clamped to u = karman_vel, the elbow's normal
+               component scaled by the wall distance, per-arm wall ramps
+               and zero outside the pipe (base.py:191-222);
   smoke        the jet sphere set to w = 0.2 plus time-seeded jitter, and
                the six-wall ramp (3d/base.py:199-222);
   smoke_obs    the jet sphere set to w = 1, the sphere obstacle's ramp and
@@ -21,7 +24,8 @@ which the fused fit's (A, c) form relies on.
 import numpy as np
 import torch
 
-from ..geometry.sdf import dist_to
+from ..geometry.sdf import (dist_to, jpipe_interior_mask, jpipe_walls,
+                            sqrt_rn)
 
 KARMAN_FAMILY = ("karman", "karman2cyl", "karman3cyl")
 JET_CENTER = (0.0, 0.0, -0.6)          # 3d/base.py:201
@@ -53,6 +57,29 @@ def _box_ramps(x, ss, eps, axes):
                         for i in range(x.shape[-1])], dim=-1)
 
 
+def _jpipe(scene, vel, x, eps):
+    """The J-pipe policy (base.py:191-222). In the elbow (neither arm)
+    the radial component about (1, 1) is scaled by the wall distance, so
+    the affine map's A is not diagonal there."""
+    px, py = x[..., 0], x[..., 1]
+    inlet = (px >= 0.0) & (px <= 0.1) & (py >= 0.0) & (py <= 0.5)
+    u = torch.where(inlet, scene.karman_vel, vel[..., 0])
+    vel = torch.stack([u, vel[..., 1]], dim=-1)
+    m1 = (px >= 0.0) & (px <= 1.0)
+    m2 = (py >= 1.0) & (py <= 2.0)
+    corner = ~m1 & ~m2
+    n = x - 1.0
+    n = n / torch.clamp(sqrt_rn(torch.sum(n * n, -1, keepdim=True)),
+                        min=1e-12)
+    u_n = torch.sum(n * vel, -1, keepdim=True) * n
+    bent = (vel - u_n) + jpipe_walls()(x)[..., None] * u_n
+    vel = torch.where(corner[..., None], bent, vel)
+    v_w = torch.where(m1, wall_ramp(py, 0.0, 0.5, eps), 1.0)
+    u_w = torch.where(m2, wall_ramp(px, 1.5, 2.0, eps), 1.0)
+    vel = vel * torch.stack([u_w, v_w], dim=-1)
+    return torch.where(jpipe_interior_mask()(x)[..., None], vel, 0.0)
+
+
 def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
     """Apply the scene's hard BCs to raw network output vel at points x.
     `key` (a key object, utils/keys.py) seeds smoke's jet jitter, folded
@@ -67,6 +94,8 @@ def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
         vel = torch.stack([u, vel[..., 1]], dim=-1)
         vel = vel * sdf_ramp(scene.obstacle_sdf(x), eps)[..., None]
         return vel * _box_ramps(x, ss, eps, (1,))
+    if name == "jpipe":
+        return _jpipe(scene, vel, x, eps)
     if name in ("smoke", "smoke_obs"):
         in_jet = dist_to(x, JET_CENTER) < 0.1
         if name == "smoke":

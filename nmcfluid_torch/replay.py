@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from .scenes import SCENES, UNPORTED_SCENES, get_scene
+from .scenes import SCENES, get_scene
 from .sim import sampling
 from .sim.fluid import NeuralFluid
 from .utils.checkpoint import latest_step, load_ckpt
@@ -25,7 +25,7 @@ from .utils.keys import Key
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("scene", choices=sorted([*SCENES, *UNPORTED_SCENES]))
+    p.add_argument("scene", choices=sorted(SCENES))
     p.add_argument("what", choices=["energy", "vorticity", "velocity"])
     p.add_argument("--exp", required=True, help="experiment dir (with model/)")
     p.add_argument("--resolution", type=int, default=None)

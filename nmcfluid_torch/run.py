@@ -9,7 +9,7 @@ checkpoint of either package resumes in the other) and optionally
 velocity and vorticity frames, then optionally replays the density pass
 (`--density`; for taylorgreen it writes the per-frame velocity error to
 `error_ours.txt`). `--ckpt N` resumes from step N and `--until M` stops
-at absolute step M. Scenes and flags the port does not have yet raise
+at absolute step M. Flags the port does not have yet raise
 NotImplementedError naming them before any file is written.
 
 Deliberate differences: `--fit_mode auto` is the fused fit on every
@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from .scenes import SCENES, UNPORTED_SCENES, get_scene
+from .scenes import SCENES, get_scene
 from .sim import sampling
 from .sim.fluid import FitStats, NeuralFluid
 from .utils.checkpoint import latest_step, load_ckpt, save_ckpt
@@ -38,7 +38,7 @@ from .utils.keys import Key
 def build_parser():
     p = argparse.ArgumentParser(
         description="neural Monte Carlo fluid, PyTorch port")
-    p.add_argument("scene", choices=sorted([*SCENES, *UNPORTED_SCENES]))
+    p.add_argument("scene", choices=sorted(SCENES))
     p.add_argument("--exp_name", default=None)
     p.add_argument("--out", default="results")
     p.add_argument("--n_timesteps", type=int, default=None)

@@ -1,3 +1,3 @@
-"""Scene catalog: Taylor-Green, the karman family and the 3D scenes."""
-from .specs import (SCENES, UNPORTED_SCENES, SceneSpec,  # noqa: F401
-                    get_scene)
+"""Scene catalog: Taylor-Green, the karman family, jpipe and the 3D
+scenes."""
+from .specs import SCENES, SceneSpec, get_scene  # noqa: F401

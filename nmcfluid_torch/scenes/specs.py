@@ -1,5 +1,5 @@
 """Scene specifications (port of scenes/specs.py: Taylor-Green, the
-karman family and the four shipped 3D scenes).
+karman family, jpipe and the four shipped 3D scenes).
 
 Taylor-Green (examples/taylorgreen/run.sh): the closed square
 [0.000447, 6.279553]^2 with analytic wall queries, a 6 x 64 SIREN, 64^2
@@ -23,18 +23,25 @@ batches, a 256^2 pressure cloud with 500 walks and an 80^3 divergence grid
 (vis_resolution); smoke, smoke_obs and vortex_collide train a 5 x 64
 SIREN, karman3d a 2 x 128 one.
 
-jpipe (UNPORTED_SCENES) is not ported yet and raises.
+jpipe (src/2d, no shipped example directory): a J-shaped duct in [0, 2]^2,
+open at its inlet (x = 0) and outlet (y = 2), walked as a segment soup
+(geometry/soup2d.py, geometry/queries2d.py): a horizontal run, a
+quarter-annulus elbow of radii 0.5 and 1 around (1, 1) and a vertical
+run; karman's hyperparameters, but the ramp width is not halved after
+the initial fit (the JAX CLI halves it for the karman family only).
 """
 import dataclasses
 import math
 from functools import cached_property
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..geometry import sdf
 from ..geometry.analytic2d import FAR, make_analytic2d
 from ..geometry.analytic3d import make_box3d
+from ..geometry.soup2d import build_segments, polyline_chain
 from ..geometry.sdf import dist_to
 from ..models.boundary import JET_CENTER
 from ..wost.solver import WalkSettings
@@ -129,6 +136,8 @@ class SceneSpec:
     def fluid_mask(self, x):
         """True where x is in the trainable fluid region (the reference's
         rejection filter in sample_in_training, base.py:239-249)."""
+        if self.name == "jpipe":
+            return sdf.jpipe_interior_mask()(x)
         m = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         if self.obstacle_sdf is not None:
             m = m & (self.obstacle_sdf(x) > 0.0)
@@ -155,6 +164,16 @@ def _karman_source(spec, x, key):
                        torch.zeros(x.shape[:-1], device=x.device)], dim=-1)
     w = torch.clamp(spec.obstacle_sdf(x), 0.0, spec.bdry_eps) / spec.bdry_eps
     return vel * w[..., None]
+
+
+def _jpipe_source(spec, x, key):
+    """Inflow in the horizontal run, ramped off the walls and zero
+    outside the pipe (src/2d/sources.py:44-66)."""
+    u = torch.where(x[..., 0] < 1.4, spec.karman_vel, 0.0)
+    vel = torch.stack([u, torch.zeros_like(u)], dim=-1)
+    w = torch.clamp(sdf.jpipe_walls()(x), 0.0, spec.bdry_eps) / spec.bdry_eps
+    vel = vel * w[..., None]
+    return torch.where(sdf.jpipe_interior_mask()(x)[..., None], vel, 0.0)
 
 
 def _smoke_source(spec, x, key):
@@ -246,6 +265,28 @@ def _karman_sdf(spec):
                       KARMAN_OBS_R + spec.boundary_distance_mask)
 
 
+def _jpipe_boundary(spec):
+    """The J-pipe's inner and outer walls as two open chains (inlet at
+    x = 0 and outlet at y = 2 open), normals out of the fluid between
+    them."""
+    th = np.linspace(0.0, 0.5 * np.pi, 21)
+    # outer wall: the y = 0 run, the r = 1 elbow, the x = 2 run; fluid left
+    outer = ([(0.0, 0.0)]
+             + [(1.0 + np.sin(t), 1.0 - np.cos(t)) for t in th]
+             + [(2.0, 2.0)])
+    # inner wall: the y = 0.5 run, the r = 0.5 elbow, the x = 1.5 run,
+    # traversed backwards so that the fluid is on its left too
+    inner = ([(0.0, 0.5)]
+             + [(1.0 + 0.5 * np.sin(t), 1.0 - 0.5 * np.cos(t)) for t in th]
+             + [(1.5, 2.0)])
+    return build_segments([polyline_chain(np.asarray(outer)),
+                           polyline_chain(np.asarray(inner)[::-1])])
+
+
+def _jpipe_sdf(spec):
+    return sdf.jpipe_walls()
+
+
 def _cube_boundary(spec):
     """The closed cube [-1, 1]^3 with analytic slab queries."""
     return make_box3d((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
@@ -298,6 +339,15 @@ SCENES = {
         name="karman3cyl", scene_size=NCYL_BBOX, obstacles=CYL3_OBS,
         _boundary_builder=_ncyl_boundary, _obstacle_sdf_builder=_ncyl_sdf,
         **_KARMAN_FAMILY),
+    # supported by src/2d (no shipped example directory); karman's
+    # hyperparameters, the ramp width kept after the initial fit
+    "jpipe": SceneSpec(
+        name="jpipe", dim=2, scene_size=(0.0, 2.0, 0.0, 2.0),
+        num_hidden_layers=2, hidden_features=128, dt=0.05,
+        sample_resolution=128, wost_resolution=512, vel_vis_resolution=200,
+        bdry_eps=3e-2, karman_vel=0.5,
+        _boundary_builder=_jpipe_boundary, _source_builder=_jpipe_source,
+        _obstacle_sdf_builder=_jpipe_sdf),
     # examples/smoke3d/run.sh
     "smoke": SceneSpec(name="smoke", _source_builder=_smoke_source,
                        **_SMOKE_NET, **_CUBE_SCENE),
@@ -319,13 +369,8 @@ SCENES = {
 }
 
 
-# the JAX package's scenes that the port does not have yet: the CLI offers
-# them as the JAX CLI does, and get_scene raises for them
-UNPORTED_SCENES = ("jpipe",)
-
 
 def get_scene(name: str) -> SceneSpec:
     if name not in SCENES:
-        raise NotImplementedError(
-            f"scene {name!r} is not ported yet; have {sorted(SCENES)}")
+        raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     return SCENES[name]

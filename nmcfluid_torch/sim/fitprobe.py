@@ -181,7 +181,7 @@ def scene_precision(name, dev, seeds, faults=False):
     from .fluid import NeuralFluid
     fluid = NeuralFluid(get_scene(name), device=dev)
     family = {"taylorgreen": "tg", "smoke_obs": "smoke",
-              "vortex_collide": "smoke"}.get(name, name)
+              "vortex_collide": "smoke", "jpipe": "karman"}.get(name, name)
     atol = SHAPES[family][1]
     cfg, params = fluid.siren_cfg, fluid.init_state(1).params
     p64 = [(W.double(), b.double()) for W, b in params]

@@ -1,8 +1,8 @@
 """The neural Monte Carlo fluid stepper (port of nmcfluid/sim/fluid.py).
 
 Per timestep (model_split.py:44-82), for the ported scenes (Taylor-Green,
-the karman family and the 3D scenes smoke, smoke_obs, vortex_collide and
-karman3d):
+the karman family, jpipe and the 3D scenes smoke, smoke_obs,
+vortex_collide and karman3d):
     advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
     project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
              cloud, then fit u(x) to u_prev(x) - grad p(x)
@@ -13,8 +13,8 @@ project; model_split.py:63-81). A phase fit runs the fused fit
 and no knob needs more (`_fused_supported`: a sine net, no parameter EMA,
 plateau stop, gradient clip or loss trace), else the fresh-batch Adam
 loop (`_adam_fit_single`); both end in the closed-form head solve
-(`ls_head`). In scenes with `reset_wts` (the karman family and the 3D
-scenes) each phase fit starts from fresh weights. On a CUDA device the
+(`ls_head`). In scenes with `reset_wts` (the karman family, jpipe and
+the 3D scenes) each phase fit starts from fresh weights. On a CUDA device the
 fused fit is the hand-written kernel; on the CPU its plain twin. The
 divergence grid is 1000^2 in 2D and vis_resolution^3 in 3D.
 
@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import get_device
-from ..geometry import analytic2d, analytic3d
+from ..geometry import analytic3d, queries2d
 from ..models.boundary import apply_boundary
 from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             init_siren)
@@ -145,7 +145,7 @@ class NeuralFluid:
             hidden_features=scene.hidden_features,
             nonlinearity=scene.nonlinearity,
             normal_init_std=0.1 if scene.dim == 2 else 1.0)
-        self.q = analytic2d if scene.dim == 2 else analytic3d
+        self.q = queries2d if scene.dim == 2 else analytic3d
         self.boundary = scene.boundary.to(self.device)
         ss = scene.scene_size
 

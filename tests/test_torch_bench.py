@@ -42,6 +42,7 @@ def _run(monkeypatch, capsys, argv, **env):
 
 @pytest.mark.parametrize("scene, metric", [
     ("taylorgreen", "taylorgreen2d_sec_per_frame"),
+    ("jpipe", "jpipe2d_sec_per_frame"),
     ("smoke", "smoke3d_sec_per_frame")])
 def test_bench_on_cpu_prints_one_line(monkeypatch, capsys, tmp_path, scene,
                                       metric):
@@ -95,12 +96,12 @@ def test_bench_needs_a_card_unless_asked_for_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("name", ["taylorgreen", "karman", "karman2cyl",
-                                  "karman3cyl", "smoke", "smoke_obs",
-                                  "vortex_collide", "karman3d"])
+                                  "karman3cyl", "jpipe", "smoke",
+                                  "smoke_obs", "vortex_collide", "karman3d"])
 def test_ramp_width_after_source(name):
     """The ramp width the steps use after add_source: halved in the 2D
     karman family as the JAX CLI does (nmcfluid/run.py:498-500), kept in
-    Taylor-Green and in every 3D scene (karman3d too)."""
+    Taylor-Green, jpipe and every 3D scene (karman3d too)."""
     scene = get_scene(name)
     halved = name in ("karman", "karman2cyl", "karman3cyl")
     eps = torch.tensor(scene.bdry_eps)

@@ -114,11 +114,11 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
     (["taylorgreen", "--wost_source", "net"], "wost_source"),
     (["taylorgreen", "--walk_algo", "pool"], "pool"),
     (["taylorgreen", "--fit_ensemble", "2"], "fit_ensemble"),
-    (["jpipe"], "jpipe"),
+    (["taylorgreen", "--walk_algo", "lockstep"], "lockstep"),
     (["smoke", "--absorption", "0"], "Yukawa"),
 ])
 def test_unported_raise_before_any_file(tmp_path, argv, name):
-    """(f) Each unported flag or scene raises NotImplementedError naming
+    """(f) Each unported flag raises NotImplementedError naming
     it, and leaves no experiment directory."""
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match=name):

@@ -96,10 +96,11 @@ def test_final_state(runs):
                                   dict(walk_settings=WalkSettings(
                                       algo="pool")),
                                   dict(projection="spectral"),
-                                  dict(scene="jpipe"),
+                                  dict(walk_settings=WalkSettings(
+                                      fast_rng=False)),
                                   dict(wost_source="net")])
 def test_unported_flags_raise(over):
-    """Flags and scenes not ported yet raise, naming themselves (adv_ref,
+    """Flags not ported yet raise, naming themselves (adv_ref,
     fit_mode="xla", grad_clip and param_ema are ported: see
     tests/test_torch_fit_single.py and tests/test_torch_run.py)."""
     over = dict(over)
