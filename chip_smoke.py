@@ -49,12 +49,23 @@
    fit's error against the mean source and 0.5 mean|u|^2 after the steps
    on the scene's vel_vis grid, over the points where the hard BCs pin
    nothing, each within its bound, peak memory.
+8. The projections phase (PROJECTIONS): one step of a path under a
+   deterministic projection from the path's own add_source state (the
+   source fit does not depend on the projection): Taylor-Green and karman
+   under bem and spectral, jpipe under bem, the four 3D scenes under
+   spectral. Each first holds the projection of one divergence grid at
+   the same points on the card against the CPU (p and grad p within
+   PROJECTION_TOL of their magnitude), then steps at full width: one
+   fit-kernel launch a fit, the stage times (spectral_solve or bem_solve,
+   the BEM's host precompute apart as bem_precompute, and the BEM solve
+   split by part with CUDA events), peak memory, a finite P, and the
+   path's band (the TG error bound, else the energy ratio of step 7).
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
-vortex_collide, and the CLI's two runs),
+vortex_collide, the CLI's two runs and the nine projection paths),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -398,8 +409,8 @@ def taylor_green_phase(cuda_build):
     """The fit kernel and the small input at Taylor-Green shapes, then the
     Taylor-Green path at full width and depth: add_source + 2 steps, 5
     fit-kernel launches. Returns the fit kernel's report entry, the params
-    after step 1 and the TG velocity errors after add_source and each
-    step."""
+    after step 1, the TG velocity errors after add_source and each step,
+    and the state after add_source."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -433,6 +444,7 @@ def taylor_green_phase(cuda_build):
     _sync()
     wall = time.perf_counter() - t0
     errors = [tg_error(state.params)]
+    source = state
     print(f"add_source: {wall:.2f} s, TG velocity error {errors[0]:.6e}",
           flush=True)
     fluid.profile = True
@@ -469,7 +481,7 @@ def taylor_green_phase(cuda_build):
           f" GiB", flush=True)
     tg_stage_check(fluid)
     return (_fit_entry("taylorgreen", fluid, launches, per_frame[0], err,
-                       kernel_ms, plain_ms), step1, errors)
+                       kernel_ms, plain_ms), step1, errors, source)
 
 
 # jpipe's fits against the float64 twin: on jpipe's pool seed 0 float32
@@ -581,7 +593,7 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
     where the hard BCs pin nothing), the source fit's relative squared
     error against the mean source (< err_bound) and 0.5 mean|u|^2 after
     the steps within `band` x the mean source's. Returns the fit kernel's
-    report entry."""
+    report entry and the state after add_source."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -627,6 +639,7 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
     if not src_err < err_bound:
         raise AssertionError(f"{name} source-fit error {src_err} >= "
                              f"{err_bound}")
+    source = state
     state = state._replace(eps=scene.eps_after_source(state.eps))
     fluid.profile = True
     per_frame = []
@@ -671,7 +684,7 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
                        kernel_ms, plain_ms)
     del fluid, state, grid, free, src, u
     torch.cuda.empty_cache()
-    return entry
+    return entry, source
 
 
 def _fresh_batch_on_card(tfluid, name, over, kw):
@@ -880,6 +893,161 @@ def cli_phase(tg_step1, tg_errors):
     return launches
 
 
+# The deterministic projections, each path at its projections: bem in 2D
+# (TG, karman, jpipe), spectral on the box and where the obstacle is one
+# circle, cylinder or sphere (TG, karman, the four 3D scenes).
+PROJECTIONS = (("taylorgreen", "bem"), ("taylorgreen", "spectral"),
+               ("karman", "bem"), ("karman", "spectral"), ("jpipe", "bem"),
+               ("smoke", "spectral"), ("smoke_obs", "spectral"),
+               ("karman3d", "spectral"), ("vortex_collide", "spectral"))
+
+# A projection on the card against the same function on the CPU: the
+# two devices run the same float32 formulas through other FFTs and other
+# reduction orders (cuFFT against pocketfft, the BEM's (B, B) matvec and
+# its splat's sums over B), so p and grad p are held to 1e-4 of their
+# largest magnitude on the CPU. The CPU parity tests hold the two
+# packages at 1e-5 (tests/test_torch_spectral.py, test_torch_bem.py).
+PROJECTION_TOL = 1e-4
+
+
+def check_small_projection(tfluid, scene, projection, Key):
+    """The projection of one divergence grid (a numpy seed's) at the same
+    pressure cloud on the card and on the CPU, small: a 64-cell 2D grid
+    (24^3 in 3D) and 32^2 points. Returns max|card - CPU| / max|CPU| of
+    (p, grad p)."""
+    kw = dict(sample_resolution=16, wost_resolution=32, max_n_iters=50,
+              fit_pool=8, div_resolution=64 if scene.dim == 2 else 24,
+              projection=projection)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fluid = tfluid.NeuralFluid(scene, device=dev, **kw)
+        res = tfluid.sampling.grid_resolutions(scene.scene_size,
+                                               fluid.div_resolution)
+        div = torch.from_numpy(np.random.RandomState(11).randn(*res)
+                               .astype(np.float32)).to(dev)
+        if projection == "bem":
+            bp = tfluid.BemProjector(scene, fluid.div_resolution,
+                                     device=dev)
+            out[dev] = tfluid._pressure_solve_bem(fluid, bp, div, Key(11))
+        else:
+            out[dev] = tfluid._pressure_solve_spectral(fluid, div, Key(11))
+    (pts_g, val_g, p_g, g_g), (pts_c, val_c, p_c, g_c) = (
+        out["cuda"], out["cpu"])
+    torch.testing.assert_close(pts_g.cpu(), pts_c, rtol=2e-7, atol=2.4e-7)
+    if not torch.equal(val_g.cpu(), val_c):
+        raise AssertionError("valid flags of the pressure cloud differ")
+    errs = []
+    for what, a, b in (("p", p_g, p_c), ("grad p", g_g, g_c)):
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        if not rel <= PROJECTION_TOL:
+            raise AssertionError(f"{scene.name} {projection} {what}: card "
+                                 f"vs CPU {rel:.3e} of the magnitude > "
+                                 f"{PROJECTION_TOL}")
+        errs.append(rel)
+    print(f"{scene.name} {projection} small input: p and grad p on the "
+          f"card against the CPU at {errs[0]:.3e} and {errs[1]:.3e} of "
+          f"their magnitude (tolerance {PROJECTION_TOL:g})", flush=True)
+    return errs
+
+
+def bem_split(fluid, repeats=3):
+    """The BEM solve of the step's own divergence grid at its own cloud,
+    split by part with CUDA events (ms, the mean of `repeats`): the FFT
+    volume potentials, the boundary values (the (B, B) matvec with its
+    lookups) and the splat over the cloud."""
+    from nmcfluid_torch.sim import bem
+    bp = fluid._bem
+    pts, _, _, div = fluid._last_projection
+    ss = bp.scene.scene_size
+    parts = {"volume_potentials": lambda: bem._volume_potentials(bp, div)}
+    V, Gx, Gy = parts["volume_potentials"]()
+    parts["boundary_values"] = lambda: bp.A_inv @ bem._vertex_bilerp(
+        V, ss, bp.cache_pts)
+    u_gamma = parts["boundary_values"]()
+    parts["splat"] = lambda: bem._splat(bp, u_gamma, V, Gx, Gy, pts)
+    out = {}
+    for k, fn in parts.items():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        fn()
+        ev[0].record()
+        for _ in range(repeats):
+            fn()
+        ev[1].record()
+        ev[1].synchronize()
+        out[k] = ev[0].elapsed_time(ev[1]) / repeats
+    return out
+
+
+def projection_phase(name, projection, source, entry, band):
+    """One step of a path under a deterministic projection, from the
+    path's own add_source state (the source fit does not depend on the
+    projection), at full width: the small input on the card against the
+    CPU, one fit-kernel launch a fit, the stage times (the BEM's host
+    precompute apart from its solve), peak memory, a finite P, and the
+    path's band: the TG velocity error under 5e-3 in Taylor-Green, else
+    0.5 mean|u|^2 on the free region within `band` x the source's.
+    Returns the fit kernel's report entry on this path (the kernel's
+    measurements at the path's shapes, this path's launches)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.sim.sampling import uniform_grid
+    from nmcfluid_torch.transport.density import (raw_velocity_grid,
+                                                  tg_velocity_error)
+    from nmcfluid_torch.utils.keys import Key
+
+    scene = get_scene(name)
+    errs = check_small_projection(tfluid, scene, projection, Key)
+    fluid = tfluid.NeuralFluid(scene, device="cuda", projection=projection)
+    state = source._replace(eps=scene.eps_after_source(source.eps))
+    fluid.profile, fluid.stage_times = True, {}
+    fk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fluid.step(state)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = fk.launches
+    stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+    if launches != 2:
+        raise AssertionError(f"{name} {projection}: {launches} fit-kernel "
+                             f"launches in the step, expected 2")
+    _check_finite(state, fluid._last_projection)
+    if name == "taylorgreen":
+        err_tg = tg_velocity_error(raw_velocity_grid(fluid, state.params,
+                                                     1000))
+        reading, ok = f"TG velocity error {err_tg:.6e}", err_tg < 5e-3
+    else:
+        grid = uniform_grid(scene.scene_size, scene.vel_vis_resolution,
+                            device="cuda")
+        free, src = free_region(fluid, grid)
+        u = tfluid._velocity_grid(fluid, state.params, state.eps,
+                                  state.timestep, scene.vel_vis_resolution,
+                                  False)
+        ratio = (float(torch.mean(torch.sum(u[free] ** 2, -1)))
+                 / float(torch.mean(torch.sum(src[free] ** 2, -1))))
+        reading = (f"0.5 mean|u|^2 {ratio:.4f} x the source's (band "
+                   f"{band})")
+        ok = band[0] <= ratio <= band[1]
+    print(f"{name} {projection} step: {wall:.2f} s, stages "
+          f"{json.dumps(stages)}, fit-kernel launches {launches}, P "
+          f"{float(state.P):.6e}, {reading}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} {projection}: {reading}")
+    if projection == "bem":
+        split = bem_split(fluid)
+        print(f"{name} bem solve by part (CUDA events, ms): "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+              f"B = {fluid._bem.n_boundary}, E = {fluid.n_pressure}, "
+              f"{fluid._bem.eval_chunk}-point chunks", flush=True)
+    out = dict(entry, path=f"{name} {projection}", launches=launches,
+               launches_per_frame=launches, projection_err=errs)
+    del fluid, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def cli_entries(fit_entries, launches):
     """Kernel-report entries of the fit kernel on the CLI's runs: the
     measurements of the scene's own path with the CLI's launch count."""
@@ -936,10 +1104,23 @@ def main():
     gather_entries = gather_report(pp, probe, gather_launches)
     torch.cuda.empty_cache()
 
-    tg_entry, tg_step1, tg_errors = taylor_green_phase(cuda_build)
+    tg_entry, tg_step1, tg_errors, tg_source = taylor_green_phase(
+        cuda_build)
     cli_launches = cli_phase(tg_step1, tg_errors)
-    fit_entries = [tg_entry] + [path_phase(*path) for path in PATHS]
+    sources = {"taylorgreen": tg_source}
+    fit_entries = [tg_entry]
+    for path in PATHS:
+        entry, sources[path[0]] = path_phase(*path)
+        fit_entries.append(entry)
     fit_entries += cli_entries(fit_entries, cli_launches)
+    t0 = time.perf_counter()
+    bands = {path[0]: path[5] for path in PATHS}
+    for name, projection in PROJECTIONS:
+        entry = next(e for e in fit_entries if e["path"] == name)
+        fit_entries.append(projection_phase(
+            name, projection, sources[name], entry, bands.get(name)))
+    print(f"projections phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

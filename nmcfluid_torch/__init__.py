@@ -11,8 +11,10 @@ soup) and of the four shipped 3D scenes (smoke, smoke_obs,
 vortex_collide, karman3d: the closed cube): SIREN velocity
 field (sine, relu, elu or tanh), Adam phase fits (the fused fit: a
 hand-written CUDA kernel on the GPU, its plain PyTorch twin on the CPU;
-or the fresh-batch loop), the divergence grid, the walk-on-stars pressure
-solve with the generation executor, and the density replay. Entry points:
+or the fresh-batch loop), the divergence grid, the pressure solve (the
+walk on stars with the generation executor, the DCT box solve with its
+circle, cylinder and sphere corrections, or the 2D boundary-element
+solve), and the density replay. Entry points:
 
     python -m nmcfluid_torch.run <scene> [flags]     simulate, save, resume
     python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}

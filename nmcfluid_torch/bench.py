@@ -27,9 +27,15 @@ Overrides for quick checks, as bench.py's: NMCFLUID_BENCH_SCENE,
 NMCFLUID_BENCH_SCALE (divides the resolutions, the walks and the fit
 pool), NMCFLUID_BENCH_ITERS (caps the Adam iterations of every fit).
 
-Left out: bench.py's flagship deterministic frame (bem in 2D, spectral in
-3D), whose projections are not ported, and its backend probe, a TPU
-workaround. Without a card and without `--device cpu` the entry prints
+The flagship frame, as bench.py's: the same frame under the scene's
+deterministic projection (bem in 2D, spectral in 3D) from its own
+add_source, one warm step, one timed step and one profiled step, written
+to the detail file under "flagship" with its stage breakdown (the BEM's
+one-time host precompute falls in the warm step);
+NMCFLUID_BENCH_FLAGSHIP=0 skips it. The printed line is the walk's frame
+alone.
+
+Left out: bench.py's backend probe, a TPU workaround. Without a card and without `--device cpu` the entry prints
 the error line and exits nonzero, as it does on any error.
 """
 import argparse
@@ -57,12 +63,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _fluid(scene, scale, iters, device):
+def _fluid(scene, scale, iters, device, projection="wost"):
     from .sim.fluid import NeuralFluid
     div = None if scale == 1 else max(
         32, (1000 if scene.dim == 2 else scene.vis_resolution) // scale)
     return NeuralFluid(
-        scene, device=device,
+        scene, device=device, projection=projection,
         max_n_iters=iters or scene.max_n_iters,
         sample_resolution=max(8, scene.sample_resolution // scale),
         wost_resolution=max(8, scene.wost_resolution // scale),
@@ -94,17 +100,13 @@ def _fit_mfu(fluid, stages):
             "share_of_f32_bound": bound / ms}
 
 
-def run(scene_name, scale, iters, device):
-    """Time the frame; returns (json line, detail)."""
-    from . import get_device
-    from .scenes import get_scene
+def _frame(fluid, scene, device):
+    """add_source (the ramp width then halved where the scene says), a
+    warm step, a timed step ending in a synchronize, and a step with the
+    stage breakdown on (synchronized between stages); returns (warm s,
+    timed s, stages, the walk's counts in that step). The steps' output
+    must be finite."""
     from .wost import gen
-
-    device = get_device(device)
-    scene = get_scene(scene_name)
-    fluid = _fluid(scene, scale, iters, device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     state = fluid.add_source(fluid.init_state(0))
     state = state._replace(eps=scene.eps_after_source(state.eps))
     t0 = time.perf_counter()
@@ -115,16 +117,35 @@ def run(scene_name, scale, iters, device):
     state = fluid.step(state)
     _sync(device)
     sec = time.perf_counter() - t0
-    # the breakdown, synchronized between stages: after the timed step
     fluid.profile, fluid.stage_times = True, {}
     gen.counts.update(dict.fromkeys(gen.counts, 0))
     state = fluid.step(state)
     _sync(device)
-    stages = dict(fluid.stage_times)
-    walk = dict(gen.counts)
     for t in [state.P] + [a for pair in state.params for a in pair]:
         if not bool(torch.isfinite(t).all()):
             raise FloatingPointError("the frame's output is not finite")
+    return warm, sec, dict(fluid.stage_times), dict(gen.counts)
+
+
+def run(scene_name, scale, iters, device):
+    """Time the frame; returns (json line, detail)."""
+    from . import get_device
+    from .scenes import get_scene
+
+    device = get_device(device)
+    scene = get_scene(scene_name)
+    fluid = _fluid(scene, scale, iters, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    warm, sec, stages, walk = _frame(fluid, scene, device)
+    flagship = None
+    if os.environ.get("NMCFLUID_BENCH_FLAGSHIP") != "0":
+        proj = "bem" if scene.dim == 2 else "spectral"
+        fl2 = _fluid(scene, scale, iters, device, projection=proj)
+        fwarm, fsec, fstages, _ = _frame(fl2, scene, device)
+        flagship = {"projection": proj, "warm_step_s": fwarm,
+                    "timed_step_s": fsec, "stage_breakdown_s": fstages,
+                    "fit_mfu": _fit_mfu(fl2, fstages)}
 
     baseline = None
     try:
@@ -142,7 +163,7 @@ def run(scene_name, scale, iters, device):
         "scene": scene_name, "scale": scale, "iters": fluid.max_n_iters,
         "warm_step_s": warm, "timed_step_s": sec,
         "stage_breakdown_s": stages, "fit_mfu": _fit_mfu(fluid, stages),
-        "walk": walk,
+        "walk": walk, "flagship": flagship,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if on_card else None),
         "device": name, "card": _card_line() if on_card else None,

@@ -106,8 +106,11 @@ def build_parser():
                         "results are the same for any value)")
     p.add_argument("--projection", default="wost",
                    choices=["wost", "spectral", "bem", "bvc"],
-                   help="the pressure solve: MC walk-on-stars; 'spectral', "
-                        "'bem' and 'bvc' are not ported yet")
+                   help="the pressure solve: 'wost' the Monte Carlo walk "
+                        "on stars; 'spectral' the DCT box solve (with the "
+                        "circle, cylinder or sphere correction); 'bem' the "
+                        "2D boundary-element solve; 'bvc' is not ported "
+                        "yet")
     # scene-hyperparameter overrides (config.py:87-156 argparse surface)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--dt", type=float, default=None)

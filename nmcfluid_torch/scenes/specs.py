@@ -97,6 +97,8 @@ class SceneSpec:
     obstacle_center: Optional[Tuple[float, ...]] = None
     obstacle_radius: Optional[float] = None
     obstacles: Optional[Tuple[Tuple[float, float, float], ...]] = None
+    # "y" for karman3d's cylinder (the axis the spectral correction takes)
+    obstacle_axis: Optional[str] = None
     _boundary_builder: Optional[Callable] = None
     _obstacle_sdf_builder: Optional[Callable] = None
     _source_builder: Optional[Callable] = None
@@ -364,6 +366,7 @@ SCENES = {
     "karman3d": SceneSpec(
         name="karman3d", num_hidden_layers=2, hidden_features=128,
         karman_vel=0.5, n_timesteps=500, obstacle_center=(0.0, -0.8), obstacle_radius=0.1,
+        obstacle_axis="y",
         _source_builder=_karman3d_source,
         _obstacle_sdf_builder=_karman3d_sdf, **_CUBE_SCENE),
 }

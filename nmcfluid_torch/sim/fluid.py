@@ -4,7 +4,7 @@ Per timestep (model_split.py:44-82), for the ported scenes (Taylor-Green,
 the karman family, jpipe and the 3D scenes smoke, smoke_obs,
 vortex_collide and karman3d):
     advect:  fit u(x) to u_prev(clamp(x - u_prev(x) dt))
-    project: WoSt-solve (Lap - sigma) p = div(u_prev) at a random pressure
+    project: solve (Lap - sigma) p = div(u_prev) at a random pressure
              cloud, then fit u(x) to u_prev(x) - grad p(x)
 with `add_source` fitting the initial field once first; adv_ref=True
 doubles both phases (advect dt/2, project, MacCormack advect dt/2,
@@ -16,7 +16,11 @@ loop (`_adam_fit_single`); both end in the closed-form head solve
 (`ls_head`). In scenes with `reset_wts` (the karman family, jpipe and
 the 3D scenes) each phase fit starts from fresh weights. On a CUDA device the
 fused fit is the hand-written kernel; on the CPU its plain twin. The
-divergence grid is 1000^2 in 2D and vis_resolution^3 in 3D.
+divergence grid is 1000^2 in 2D and vis_resolution^3 in 3D. The pressure
+solve is the projection: "wost" walks on stars (the reference's Monte
+Carlo solve), "spectral" is the DCT box solve with the modal correction
+of a circle, cylinder or sphere obstacle (sim/spectral.py, ops/*_modes.py)
+and "bem" the boundary-element solve of any 2D scene (sim/bem.py).
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
@@ -38,7 +42,9 @@ from ..utils.keys import Key
 from ..wost.gen import estimate_solution_and_gradient_gen
 from ..wost.solver import WalkSettings, WostScene, check_supported
 from . import sampling
+from .bem import BemProjector
 from .fitkernel import ADAM_B1, ADAM_B2, ADAM_EPS, fused_adam_fit
+from .spectral import grid_gradient, solve_screened_poisson
 
 
 class SimState(NamedTuple):
@@ -73,8 +79,11 @@ class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
     Takes the JAX package's constructor arguments; those not ported yet
-    (projection, fit_ensemble, wost_source, mesh, and walk settings or an
-    absorption the walk does not take) raise NotImplementedError here.
+    (projection "bvc", fit_ensemble, wost_source, mesh, and under "wost"
+    walk settings or an absorption the walk does not take) raise
+    NotImplementedError here, and the projections the JAX package refuses
+    (spectral on a scene whose obstacle is not one circle, bem in 3D)
+    ValueError.
     fit_mode "auto" resolves to "fused" on every device (the JAX package
     picks "xla" on the CPU, where its kernel would run interpreted; the
     port's CPU twin is plain PyTorch). The JAX package's fit_unroll is
@@ -102,12 +111,29 @@ class NeuralFluid:
                  wost_source: str = "grid",
                  mesh=None,
                  device=None):
+        if projection not in ("wost", "spectral", "bem", "bvc"):
+            raise ValueError(f"NeuralFluid: unknown projection "
+                             f"{projection!r}")
+        if (projection == "spectral" and scene.dim == 2
+                and scene.has_obstacle and scene.obstacle_center is None):
+            # the deterministic box solve needs the fluid domain to be the
+            # box minus at most one circle; jpipe's is the pipe's interior
+            raise ValueError(
+                f"--projection spectral is unsupported on '{scene.name}': "
+                "its obstacle is not a circle (use the bem or wost "
+                "projection)")
+        if projection in ("bem", "bvc") and scene.dim != 2:
+            raise ValueError(
+                f"--projection {projection} is 2D-only (the 3D scenes' "
+                "WoSt domain is the plain cube, where spectral is already "
+                "exact)")
         for flag, value, default in (
-                ("projection", projection, "wost"),
                 ("fit_ensemble", fit_ensemble, 1),
                 ("wost_source", wost_source, "grid"), ("mesh", mesh, None)):
             if value != default:
                 _unsupported(flag, value)
+        if projection == "bvc":
+            _unsupported("projection", projection)
         if fit_mode not in ("auto", "fused", "xla"):
             raise ValueError(f"NeuralFluid: unknown fit_mode {fit_mode!r}")
         if lr_schedule not in ("constant", "cosine", "tail"):
@@ -115,6 +141,8 @@ class NeuralFluid:
                              f"{lr_schedule!r}")
         self.scene = scene
         self.device = get_device(device)
+        self.projection = projection
+        self._bem = None        # the BemProjector, built at first use
         self.adv_ref = bool(adv_ref)
         self.fit_mode = "fused" if fit_mode == "auto" else fit_mode
         self.lr_schedule = lr_schedule
@@ -155,9 +183,11 @@ class NeuralFluid:
         self._wost_scene = WostScene(
             dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
             absorption=scene.absorption)
-        # raise now, not at the first walk, for what the walk does not take
-        check_supported(self._wost_scene, self.walk_settings)
-        self._wost_scene.greens()
+        if projection == "wost":
+            # raise now, not at the first walk, for what the walk does not
+            # take
+            check_supported(self._wost_scene, self.walk_settings)
+            self._wost_scene.greens()
         self._bbox_lo = torch.tensor(ss[0::2], dtype=torch.float32,
                                      device=self.device)
         self._bbox_hi = torch.tensor(ss[1::2], dtype=torch.float32,
@@ -279,10 +309,24 @@ class NeuralFluid:
         """Pressure solve + projection fit (model_split.py:245-284)."""
         div_grid = self._timed("div_grid", _divergence_grid, self, prev,
                                state.eps, state.timestep)
-        chunks = [self._timed("wost_solve", _pressure_solve, self,
-                              (div_grid,), k_wost.fold_in(c))
-                  for c in range(self.n_pressure // self.wost_chunk)]
-        pts, valid, p, grad_p = (torch.cat(xs) for xs in zip(*chunks))
+        if self.projection == "spectral":
+            pts, valid, p, grad_p = self._timed(
+                "spectral_solve", _pressure_solve_spectral, self, div_grid,
+                k_wost)
+        elif self.projection == "bem":
+            if self._bem is None:
+                self._bem = self._timed(
+                    "bem_precompute", lambda: BemProjector(
+                        self.scene, self.div_resolution,
+                        device=self.device))
+            pts, valid, p, grad_p = self._timed(
+                "bem_solve", _pressure_solve_bem, self, self._bem, div_grid,
+                k_wost)
+        else:
+            chunks = [self._timed("wost_solve", _pressure_solve, self,
+                                  (div_grid,), k_wost.fold_in(c))
+                      for c in range(self.n_pressure // self.wost_chunk)]
+            pts, valid, p, grad_p = (torch.cat(xs) for xs in zip(*chunks))
         self._last_projection = (pts, p, grad_p, div_grid)
         P = torch.mean(p)     # model_split.py:219
         if self.scene.reset_wts:
@@ -673,4 +717,55 @@ def _pressure_solve(fluid, source_args, key):
         p, grad_p, _ = estimate_solution_and_gradient_gen(
             fluid._wost_scene, fluid.walk_settings, pts, k2,
             source_args=source_args)
+    return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
+
+
+def _pressure_solve_bem(fluid, bp, div_grid, key):
+    """The deterministic boundary-element projection (sim/bem.py) at a
+    pressure cloud of n_pressure points drawn with `key` in one draw, with
+    the walk's boundary masking."""
+    pts, valid = sampling.fluid_points(key, fluid.n_pressure, fluid.scene,
+                                       device=fluid.device)
+    p, grad_p = bp.solve(div_grid, pts)
+    return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
+
+
+def _pressure_solve_spectral(fluid, div_grid, key):
+    """The deterministic DCT projection (sim/spectral.py) of the same
+    divergence grid, sampled bilinearly at a pressure cloud of n_pressure
+    points drawn with `key` in one draw, with the walk's boundary masking.
+    Where the scene has one circle (karman), a cylinder along y (karman3d)
+    or a sphere (smoke_obs) and sigma > 0, a modal correction cancels the
+    box solve's Neumann residual on the obstacle."""
+    scene = fluid.scene
+    ss = scene.scene_size
+    pts, valid = sampling.fluid_points(key, fluid.n_pressure, scene,
+                                       device=fluid.device)
+    p_grid = solve_screened_poisson(div_grid, ss, scene.absorption)
+    g_grid = grid_gradient(p_grid, ss)
+    p = sampling.bilinear_lookup(p_grid, ss, pts)
+    grad_p = torch.stack([sampling.bilinear_lookup(g_grid[..., i], ss, pts)
+                          for i in range(scene.dim)], -1)
+    if (scene.obstacle_center is not None
+            and scene.obstacle_radius is not None
+            and scene.absorption > 0.0):
+        args = (scene.obstacle_center, scene.obstacle_radius,
+                scene.absorption)
+        if scene.dim == 2:
+            from ..ops.circle_modes import (eval_circle_correction,
+                                            fit_circle_correction)
+            coeffs = fit_circle_correction(g_grid, ss, *args)
+            q, grad_q = eval_circle_correction(coeffs, pts, *args)
+        elif scene.obstacle_axis == "y":      # karman3d's cylinder
+            from ..ops.cylinder_modes import (eval_cylinder_correction,
+                                              fit_cylinder_correction)
+            coeffs = fit_cylinder_correction(g_grid, ss, *args)
+            q, grad_q = eval_cylinder_correction(coeffs, pts, ss, *args)
+        else:                                 # smoke_obs's sphere
+            from ..ops.sphere_modes import (eval_sphere_correction,
+                                            fit_sphere_correction)
+            coeffs = fit_sphere_correction(g_grid, ss, *args)
+            q, grad_q = eval_sphere_correction(coeffs, pts, *args)
+        p = p + q
+        grad_p = grad_p + grad_q
     return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)

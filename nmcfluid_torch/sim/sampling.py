@@ -1,4 +1,5 @@
-"""Training-point samplers (port of nmcfluid/sim/sampling.py).
+"""Training-point samplers and grid lookups (port of
+nmcfluid/sim/sampling.py).
 
 Grids use indexing='ij'. In scenes with obstacles `fluid_points` redraws
 the points that fall inside one for a fixed number of rounds and returns
@@ -110,3 +111,29 @@ def nearest_lookup(grid, scene_size, y):
         idx = torch.clamp(u.to(torch.int32), 0, res[i] - 1).to(torch.int64)
         flat = idx if flat is None else flat * res[i] + idx
     return grid.reshape(-1)[flat]
+
+
+def bilinear_lookup(grid, scene_size, y):
+    """Multilinear gather into a cell-centered grid over the scene box
+    (the layout of nearest_lookup; clamped at the walls), where the
+    deterministic projections need sub-cell accuracy."""
+    dim = y.shape[-1]
+    res = grid.shape
+    i0s, ws = [], []
+    for i in range(dim):
+        lo, hi = scene_size[2 * i], scene_size[2 * i + 1]
+        u = (y[..., i] - lo) / (hi - lo) * res[i] - 0.5
+        i0 = torch.clamp(torch.floor(u).to(torch.int64), 0, res[i] - 2)
+        i0s.append(i0)
+        ws.append(torch.clamp(u - i0.to(u.dtype), 0.0, 1.0))
+    flat_grid = grid.reshape(-1)
+    out = torch.zeros(y.shape[:-1], dtype=grid.dtype, device=grid.device)
+    for corner in range(1 << dim):
+        flat = torch.zeros(y.shape[:-1], dtype=torch.int64, device=y.device)
+        w = torch.ones(y.shape[:-1], dtype=grid.dtype, device=grid.device)
+        for i in range(dim):
+            hi_bit = (corner >> i) & 1
+            flat = flat * res[i] + i0s[i] + hi_bit
+            w = w * (ws[i] if hi_bit else 1.0 - ws[i])
+        out = out + w * flat_grid[flat]
+    return out

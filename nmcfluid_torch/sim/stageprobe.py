@@ -33,14 +33,15 @@ those rows of an error_ours.txt (one row a frame, row 0 after
 add_source).
 
     python -m nmcfluid_torch.sim.stageprobe --ckpt DIR --step K \\
-        --frames N [--seed S] [--curve_out FILE]
+        --frames N [--seed S] [--projection P] [--curve_out FILE]
 
 instead runs N whole steps from the checkpoint with the stepper on the
 key tree of Key(S), as `python -m nmcfluid_torch.run taylorgreen --seed
 S` runs them after add_source, and prints the TG error a frame (row 0
 the checkpoint's), its growth and mean (curve_stats), and writes the
 rows to --curve_out: the curve of the port's step from any starting
-state, such as the JAX package's own add_source.
+state, such as the JAX package's own add_source, under the projection
+--projection (wost, spectral or bem; default wost).
 
 Runs on the card unless given --device cpu (then with --small, a reduced
 size for a rehearsal).
@@ -191,15 +192,15 @@ def run_frames(fluid, params, t, args, name):
         print(f"step {state.timestep}: {time.perf_counter() - t0:.1f} s, "
               f"TG velocity error {rows[-1]:.6e}", flush=True)
     res = dict(curve_stats(rows), rows_all=rows, start_step=t,
-               seed=args.seed, device=name)
+               seed=args.seed, projection=fluid.projection, device=name)
     if args.curve_out:
         np.savetxt(args.curve_out, rows)
     print(json.dumps(res), flush=True)
     return res
 
 
-def make_fluid(device, small=False):
-    kw = dict(device=device)
+def make_fluid(device, small=False, projection="wost"):
+    kw = dict(device=device, projection=projection)
     if small:
         kw.update(max_n_iters=50, sample_resolution=16, wost_resolution=32,
                   div_resolution=64, n_walks=48, fit_pool=8)
@@ -223,12 +224,18 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--curve_out", default=None)
+    ap.add_argument("--projection", default="wost",
+                    choices=["wost", "spectral", "bem"],
+                    help="with --frames: the steps' pressure solve")
     args = ap.parse_args(argv)
     if args.curve:
         res = curve_stats(np.loadtxt(args.curve), args.first)
         print(json.dumps(res), flush=True)
         return res
-    fluid = make_fluid(args.device, args.small)
+    if args.projection != "wost" and not args.frames:
+        ap.error("--projection goes with --frames (the stage split "
+                 "reads the walk)")
+    fluid = make_fluid(args.device, args.small, args.projection)
     like = fluid.init_state(0).params
     params, t = load_ckpt(args.ckpt, like, args.step)
     name = (torch.cuda.get_device_name(0) if fluid.device.type == "cuda"

@@ -29,6 +29,14 @@ port's own 500-walk estimate is held against the JAX package's reference
 there (`port_vs_jax_ref`): the walk of the two packages on identical
 inputs; --walk_only runs that comparison alone. This script imports JAX:
 it is a check of the reference, not part of the port.
+
+    JAX_PLATFORMS=cpu python port_stages.py --source_seed S --save DIR
+
+instead runs the JAX package's add_source for the shipped TG
+configuration from `init_state(S)` (as `python -m nmcfluid.run
+taylorgreen --seed S` does; on the CPU its fit is the fresh-batch loop),
+writes it as `DIR/ckpt_step_t000.npz` and prints its TG error: a
+starting state of the JAX package's own for `stageprobe --frames`.
 """
 import argparse
 import json
@@ -50,8 +58,11 @@ def walk_stats_np(g_a, g_b, g_ref):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ckpt", required=True)
-    ap.add_argument("--step", type=int, required=True)
+    ap.add_argument("--ckpt")
+    ap.add_argument("--step", type=int)
+    ap.add_argument("--source_seed", type=int, default=None,
+                    help="run add_source from init_state(S) and --save it")
+    ap.add_argument("--save", default=None)
     ap.add_argument("--keys", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--inputs", default=None)
     ap.add_argument("--walk_only", action="store_true",
@@ -70,7 +81,7 @@ def main(argv=None):
     from nmcfluid.sim import fluid as jfluid
     from nmcfluid.transport.density import (raw_velocity_grid,
                                             tg_velocity_error)
-    from nmcfluid.utils.checkpoint import load_ckpt
+    from nmcfluid.utils.checkpoint import load_ckpt, save_ckpt
     from nmcfluid.wost.gen import estimate_solution_and_gradient_gen
 
     kw = {}
@@ -81,6 +92,18 @@ def main(argv=None):
                   div_resolution=64, n_walks=48)
     f = NeuralFluid(get_scene("taylorgreen"), **kw)
     scene = f.scene
+    if args.source_seed is not None:
+        t0 = time.perf_counter()
+        state = f.add_source(f.init_state(args.source_seed))
+        path = save_ckpt(args.save, state.params, 0)
+        res = 1000 if not args.small else 64
+        print(json.dumps({
+            "tg_err": tg_velocity_error(np.asarray(
+                raw_velocity_grid(f, state.params, res))),
+            "seed": args.source_seed, "ckpt": path,
+            "seconds": time.perf_counter() - t0, "device": "cpu (JAX)"}),
+            flush=True)
+        return
     params, t = load_ckpt(args.ckpt, f.init_state(0).params, args.step)
     params = jax.tree.map(jnp.asarray, params)
     eps, tt = float(scene.bdry_eps), t + 1

@@ -66,6 +66,29 @@ def test_bench_on_cpu_prints_one_line(monkeypatch, capsys, tmp_path, scene,
     assert _tracked_digest() == before
 
 
+@pytest.mark.parametrize("scene, proj, solve", [
+    ("taylorgreen", "bem", "bem_solve"),
+    ("smoke", "spectral", "spectral_solve")])
+def test_bench_flagship_frame(monkeypatch, capsys, tmp_path, scene, proj,
+                              solve):
+    """The flagship frame, as bench.py's: bem in 2D, spectral in 3D, its
+    timed step and stage breakdown in the detail file, the printed line
+    unchanged in form; NMCFLUID_BENCH_FLAGSHIP=0 leaves it out."""
+    detail = tmp_path / "detail.json"
+    env = dict(NMCFLUID_BENCH_SCENE=scene, NMCFLUID_BENCH_SCALE=32,
+               NMCFLUID_BENCH_ITERS=3, NMCFLUID_BENCH_DETAIL=detail)
+    code, line = _run(monkeypatch, capsys, ["--device", "cpu"], **env)
+    assert code == 0 and set(line) == {"metric", "value", "unit",
+                                       "vs_baseline", "device"}
+    fl = json.loads(detail.read_text())["flagship"]
+    assert fl["projection"] == proj and fl["timed_step_s"] > 0
+    assert set(fl["stage_breakdown_s"]) == {"advect_fit", "div_grid", solve,
+                                            "project_fit"}
+    code, _ = _run(monkeypatch, capsys, ["--device", "cpu"],
+                   NMCFLUID_BENCH_FLAGSHIP=0, **env)
+    assert code == 0 and json.loads(detail.read_text())["flagship"] is None
+
+
 def test_bench_default_detail_path_is_ignored_by_git(monkeypatch):
     """The default detail file lies under chiprun_out/, which .gitignore
     lists, so a run on a checkout leaves git's tree as it was."""

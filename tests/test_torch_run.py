@@ -109,7 +109,7 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["taylorgreen", "--projection", "bem"], "projection"),
+    (["taylorgreen", "--projection", "bvc"], "projection"),
     (["taylorgreen", "--mesh", "2"], "mesh"),
     (["taylorgreen", "--wost_source", "net"], "wost_source"),
     (["taylorgreen", "--walk_algo", "pool"], "pool"),
@@ -123,6 +123,31 @@ def test_unported_raise_before_any_file(tmp_path, argv, name):
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match=name):
         trun.main(argv + ["--out", str(out), "--device", "cpu"])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("projection", ["spectral", "bem"])
+def test_projection_checkpoints_match_jax(tmp_path, projection):
+    """--projection spectral and bem: the two CLIs' Taylor-Green
+    checkpoints after add_source and one step agree at the chained-step
+    tolerance (rtol 2e-4 / atol 1e-3), and the config names the
+    projection."""
+    jdir, tdir, _ = cli_pair(tmp_path, "taylorgreen",
+                             ["--projection", projection])
+    assert_ckpts_match(jdir, tdir, [1e-3])
+    cfg = json.loads((tdir / "config.json").read_text())
+    assert cfg["projection"] == projection
+
+
+@pytest.mark.parametrize("scene", ["jpipe", "karman2cyl"])
+def test_spectral_refused_before_any_file(tmp_path, scene):
+    """Where the JAX CLI refuses --projection spectral (the obstacle is
+    not one circle) the port raises the same ValueError before any
+    file."""
+    out = tmp_path / "out"
+    with pytest.raises(ValueError, match="spectral is unsupported"):
+        trun.main([scene, "--projection", "spectral", "--out", str(out),
+                   "--device", "cpu"])
     assert not out.exists()
 
 

@@ -56,11 +56,13 @@ def test_frames_reproduce_the_cli(tmp_path):
 
 
 def test_committed_checkpoints_load():
-    """The Part A checkpoints (the port's seed 1 after step 10, the JAX
-    package's seed-0 add_source) load as TG's 6 x 64 net, finite."""
+    """The committed checkpoints (the port's seed 1 after step 10, the JAX
+    package's seed-0, 1 and 2 add_source) load as TG's 6 x 64 net,
+    finite."""
     fluid = stageprobe.make_fluid("cpu", small=True)
     like = fluid.init_state(0).params
-    for d, step in (("docs/tg_stage_ckpt", 10), ("docs/tg_jax_seed0", 0)):
+    for d, step in (("docs/tg_stage_ckpt", 10), ("docs/tg_jax_seed0", 0),
+                    ("docs/tg_jax_seed1", 0), ("docs/tg_jax_seed2", 0)):
         params, t = load_ckpt(str(ROOT / d), like, step)
         assert t == step
         for (W, b), (W0, b0) in zip(params, like):
@@ -94,3 +96,70 @@ def test_probe_and_port_stages_print_the_same_readings(tmp_path):
     np.testing.assert_allclose(port["tg_err"]["after_advect"],
                                jax["tg_err"]["after_advect"], rtol=1e-2)
     assert np.isfinite(port["project_one_chunk"]["tg_err"])
+
+
+def test_frames_take_the_projection(tmp_path, monkeypatch):
+    """--frames --projection steps under the deterministic projections;
+    the same start under each gives its own curve, row 0 the same (the TG
+    error read on a 64^2 grid here, to keep the test short)."""
+    raw = stageprobe.raw_velocity_grid
+    monkeypatch.setattr(stageprobe, "raw_velocity_grid",
+                        lambda fluid, params, n: raw(fluid, params, 64))
+    rows = {}
+    for proj in ("spectral", "bem"):
+        res = stageprobe.main(["--device", "cpu", "--small", "--ckpt",
+                               str(ROOT / "docs/tg_jax_seed1"), "--step",
+                               "0", "--frames", "1", "--seed", "1",
+                               "--projection", proj])
+        assert res["projection"] == proj and len(res["rows_all"]) == 2
+        assert np.all(np.isfinite(res["rows_all"]))
+        rows[proj] = res["rows_all"]
+    assert rows["spectral"][0] == rows["bem"][0]
+    assert rows["spectral"][1] != rows["bem"][1]
+
+
+def _jax_env(tmp_path):
+    return {"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
+            "HOME": str(tmp_path)}
+
+
+def test_port_stages_source_seed_writes_a_start(tmp_path):
+    """port_stages.py --source_seed writes the JAX package's add_source as
+    a checkpoint of the step it is (0) and prints its TG error, the same
+    on a rerun (the JAX package's fit is deterministic for its seed)."""
+    errs = []
+    for run in ("a", "b"):
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "port_stages.py"), "--small",
+             "--source_seed", "2", "--save", str(tmp_path / run)],
+            capture_output=True, text=True, check=True,
+            env=_jax_env(tmp_path), cwd=str(tmp_path))
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        assert line["seed"] == 2 and np.isfinite(line["tg_err"])
+        errs.append(line["tg_err"])
+    fluid = stageprobe.make_fluid("cpu", small=True)
+    a, t = load_ckpt(str(tmp_path / "a"), fluid.init_state(0).params, 0)
+    b, _ = load_ckpt(str(tmp_path / "b"), fluid.init_state(0).params, 0)
+    assert t == 0 and errs[0] == errs[1]
+    for (Wa, ba), (Wb, bb) in zip(a, b):
+        assert torch.equal(Wa, Wb) and torch.equal(ba, bb)
+
+
+def test_source_split_agrees_on_the_same_draws(tmp_path):
+    """tests/source_split.py --small: on the same draws the two packages'
+    fused source fits (the JAX package's XLA mirror, the port's twin)
+    leave the same TG error after Adam and after the head solve (rtol
+    1e-4; measured 3e-9 relative) and parameters within the fit tolerance
+    of tests/test_torch_step.py (atol 1e-3; measured 3.8e-6), and write
+    both states."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "source_split.py"), "--small",
+         "--seed", "1", "--out", str(tmp_path)], capture_output=True,
+        text=True, check=True, env=_jax_env(tmp_path), cwd=str(tmp_path))
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    j, p = line["tg_err"]["jax"], line["tg_err"]["port"]
+    for k in ("after_adam", "after_head", "loss"):
+        np.testing.assert_allclose(p[k], j[k], rtol=1e-4)
+    assert line["max_param_diff"] < 1e-3
+    for who in ("jax_fused", "port_fused"):
+        assert (tmp_path / who / "ckpt_step_t000.npz").exists()

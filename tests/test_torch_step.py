@@ -91,18 +91,21 @@ def test_final_state(runs):
 
 
 @pytest.mark.parametrize("over", [dict(fit_ensemble=2),
-                                  dict(projection="bem"),
+                                  dict(projection="bvc"),
                                   dict(mesh=2),
                                   dict(walk_settings=WalkSettings(
                                       algo="pool")),
-                                  dict(projection="spectral"),
+                                  dict(walk_settings=WalkSettings(
+                                      steps_before_tikhonov=1)),
                                   dict(walk_settings=WalkSettings(
                                       fast_rng=False)),
                                   dict(wost_source="net")])
 def test_unported_flags_raise(over):
     """Flags not ported yet raise, naming themselves (adv_ref,
     fit_mode="xla", grad_clip and param_ema are ported: see
-    tests/test_torch_fit_single.py and tests/test_torch_run.py)."""
+    tests/test_torch_fit_single.py and tests/test_torch_run.py; the
+    spectral and bem projections: tests/test_torch_spectral.py and
+    tests/test_torch_bem.py)."""
     over = dict(over)
     scene = over.pop("scene", "taylorgreen")
     with pytest.raises(NotImplementedError,
