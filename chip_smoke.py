@@ -23,8 +23,8 @@
 5. Holds the divergence grid and one walk-on-stars chunk on the card
    against the same stages on the CPU, on a small input.
 6. Drives the main path at the shipped Taylor-Green width and depth:
-   get_scene, NeuralFluid(device="cuda"), init_state, add_source and two
-   steps, with the per-stage wall-clock (and the fit kernel's own device
+   get_scene, NeuralFluid(device="cuda"), init_state, add_source and one
+   step (TG_STEPS), with the per-stage wall-clock (and the fit kernel's own device
    time, "fit_kernel") and the Taylor-Green velocity error of each step,
    and checks that every phase fit ran on the kernel, one launch a fit;
    then one step from docs/tg_stage_ckpt (the port's seed 1 after step
@@ -41,7 +41,7 @@
    needs pool points with an off-diagonal A and holds the float64 twin at
    JPIPE_ATOL64, its small-input walk nine points in ten at the gen
    tolerance), then the 3D scenes in the closed cube:
-   smoke (5 x 64, two steps), karman3d (2 x 128), smoke_obs and
+   smoke (5 x 64), karman3d (2 x 128), smoke_obs and
    vortex_collide (5 x 64), one step each, with an 80^3 divergence grid
    and 256^2 pressure points; all with 500 walks, 10,000-iteration fits
    on K = 512 pools with fresh weights each. Per path: stage times, walk
@@ -60,12 +60,27 @@
    the BEM's host precompute apart as bem_precompute, and the BEM solve
    split by part with CUDA events), peak memory, a finite P, and the
    path's band (the TG error bound, else the energy ratio of step 7).
+9. The walks phase (walks_phase): (a) the walker pool against the
+   generation executor on one 65,536-point Taylor-Green chunk at 500
+   walks, on the same streams (equal valid counts, p and grad p at
+   tests/test_gen.py's tolerances; each executor's seconds, the pool's
+   trips); (b) the screened mixed Dirichlet/Neumann problem and the
+   double-sided barrier under estimate_solution and the gen and pool
+   gradients, at the JAX tests' atol, and a small input on the card
+   against the CPU; (c) an image-driven scene built from PFMs written to
+   a temporary directory, held to its manufactured solution; (d) the bvc
+   projection held card against CPU on small Taylor-Green and karman
+   inputs, then one Taylor-Green step under bvc at full width from the
+   path's add_source state: one fit-kernel launch a fit, the cache walk
+   and the splat timed apart by CUDA events (bvc_walk, bvc_splat), peak
+   memory and the TG error bound.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
-vortex_collide, the CLI's two runs and the nine projection paths),
+vortex_collide, the CLI's two runs, the nine projection paths and
+Taylor-Green under bvc),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -405,9 +420,14 @@ def _plan(fk, fluid):
                        fk._sm_count(torch.device("cuda")))
 
 
+# the Taylor-Green path's steps at full width (one since the walks phase
+# came: the phases stay under 900 s; the CLI phase reads step 1)
+TG_STEPS = 1
+
+
 def taylor_green_phase(cuda_build):
     """The fit kernel and the small input at Taylor-Green shapes, then the
-    Taylor-Green path at full width and depth: add_source + 2 steps, 5
+    Taylor-Green path at full width and depth: add_source + 1 step, 3
     fit-kernel launches. Returns the fit kernel's report entry, the params
     after step 1, the TG velocity errors after add_source and each step,
     and the state after add_source."""
@@ -449,7 +469,7 @@ def taylor_green_phase(cuda_build):
           flush=True)
     fluid.profile = True
     per_frame = []
-    for s in range(2):
+    for s in range(TG_STEPS):
         fluid.stage_times = {}
         _walk_report(0.0)
         before = fk.launches
@@ -468,8 +488,9 @@ def taylor_green_phase(cuda_build):
               f"{errors[-1]:.6e}; "
               f"{_walk_report(stages['wost_solve'])}", flush=True)
     launches = fk.launches
-    if launches != 5 or per_frame != [2, 2]:
-        raise AssertionError(f"expected 5 fit-kernel launches (1 source + "
+    if launches != 1 + 2 * TG_STEPS or per_frame != [2] * TG_STEPS:
+        raise AssertionError(f"expected {1 + 2 * TG_STEPS} fit-kernel "
+                             f"launches (1 source + "
                              f"2 per step), got {launches} ({per_frame} "
                              f"in the steps)")
     _check_finite(state, fluid._last_projection)
@@ -558,7 +579,7 @@ def tg_stage_check(fluid):
 PATHS = (
     ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
     ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
-    ("smoke", 2, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
+    ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
     ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
     ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
     ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
@@ -917,7 +938,7 @@ def check_small_projection(tfluid, scene, projection, Key):
     (p, grad p)."""
     kw = dict(sample_resolution=16, wost_resolution=32, max_n_iters=50,
               fit_pool=8, div_resolution=64 if scene.dim == 2 else 24,
-              projection=projection)
+              n_walks=48, projection=projection)
     out = {}
     for dev in ("cuda", "cpu"):
         fluid = tfluid.NeuralFluid(scene, device=dev, **kw)
@@ -929,6 +950,11 @@ def check_small_projection(tfluid, scene, projection, Key):
             bp = tfluid.BemProjector(scene, fluid.div_resolution,
                                      device=dev)
             out[dev] = tfluid._pressure_solve_bem(fluid, bp, div, Key(11))
+        elif projection == "bvc":
+            bp = tfluid.BvcProjector(scene, fluid.div_resolution,
+                                     fluid._wost_scene, fluid.walk_settings,
+                                     device=dev)
+            out[dev] = tfluid._pressure_solve_bvc(fluid, bp, div, Key(11))
         else:
             out[dev] = tfluid._pressure_solve_spectral(fluid, div, Key(11))
     (pts_g, val_g, p_g, g_g), (pts_c, val_c, p_c, g_c) = (
@@ -1048,6 +1074,313 @@ def projection_phase(name, projection, source, entry, band):
     return out
 
 
+# ---------------------------------------------------------------- walks
+
+# the screened mixed-boundary problem of tests/test_dirichlet.py and the
+# double-sided barrier of tests/test_doublesided.py (box side 2)
+WALK_L, WALK_SIG_D = 2.0, 5.0
+BAR_M, BAR_SIG, BAR_CL, BAR_CR = 0.8, 10.0, 1.0, 2.0
+
+
+def _mixed_scenes(device):
+    """(mixed, barrier, p* of each, grad p* of each) on `device`."""
+    import math
+    from nmcfluid_torch.geometry.soup2d import build_segments, polyline_chain
+    from nmcfluid_torch.wost.solver import WostScene
+    L, kx = WALK_L, math.pi / WALK_L
+    kl, kr = math.pi / BAR_M, math.pi / (L - BAR_M)
+
+    def soup(chains, **kw):
+        return build_segments([polyline_chain(c) for c in chains],
+                              **kw).to(device)
+
+    def p_mixed(x):
+        return torch.cos(kx * x[..., 0]) * torch.cos(kx * x[..., 1])
+
+    def g_mixed(x):
+        return torch.stack([-kx * torch.sin(kx * x[..., 0])
+                            * torch.cos(kx * x[..., 1]),
+                            -kx * torch.cos(kx * x[..., 0])
+                            * torch.sin(kx * x[..., 1])], -1)
+
+    def p_bar(x):
+        xx = x[..., 0]
+        return torch.where(xx < BAR_M, BAR_CL * torch.cos(kl * xx),
+                           BAR_CR * torch.cos(kr * (L - xx)))
+
+    def g_bar(x):
+        xx = x[..., 0]
+        gx = torch.where(xx < BAR_M, -kl * BAR_CL * torch.sin(kl * xx),
+                         kr * BAR_CR * torch.sin(kr * (L - xx)))
+        return torch.stack([gx, torch.zeros_like(gx)], -1)
+
+    def src_bar(x):
+        xx = x[..., 0]
+        return torch.where(
+            xx < BAR_M, (BAR_SIG + kl ** 2) * BAR_CL * torch.cos(kl * xx),
+            (BAR_SIG + kr ** 2) * BAR_CR * torch.cos(kr * (L - xx)))
+
+    mixed = WostScene(
+        dim=2, neumann=soup([[(0.0, L), (0.0, 0.0)], [(L, 0.0), (L, L)]]),
+        source_fn=lambda x: (WALK_SIG_D + 2 * kx ** 2) * p_mixed(x),
+        absorption=WALK_SIG_D,
+        dirichlet=soup([[(0.0, 0.0), (L, 0.0)], [(L, L), (0.0, L)]]),
+        dirichlet_fn=p_mixed)
+    barrier = WostScene(
+        dim=2, neumann=soup([[(0.0, 0.0), (L, 0.0)], [(L, L), (0.0, L)],
+                             [(BAR_M, 0.0), (BAR_M, L)]], double_sided=True),
+        source_fn=src_bar, absorption=BAR_SIG,
+        dirichlet=soup([[(0.0, L), (0.0, 0.0)], [(L, 0.0), (L, L)]]),
+        dirichlet_fn=p_bar)
+    return {"mixed": (mixed, p_mixed, g_mixed),
+            "barrier": (barrier, p_bar, g_bar)}
+
+
+# the JAX tests' points and atol for each problem: the solution walk's
+# points and atol, the gradient executors' points and (p, grad p) atol
+MIXED_CASES = {
+    "mixed": ([[1.0, 0.35], [0.5, 0.7], [1.5, 1.65], [0.3, 1.2]], 0.05,
+              [[1.0, 0.35], [0.5, 0.7], [1.5, 1.65], [0.3, 1.2]], 0.06,
+              0.15),
+    "barrier": ([[0.3, 1.0], [0.55, 0.5], [1.1, 1.0], [1.6, 1.4]], 0.08,
+                [[0.4, 1.0], [1.3, 0.9]], 0.08, 0.2),
+}
+
+
+def _mixed_boundary_checks(Key):
+    """(b): each problem on the card with estimate_solution (3000 walks)
+    and with the gen and pool gradients (3000 walks; 256 pairs a
+    generation and 4096 pool slots, which only reorder the work), held to
+    the manufactured solution at the JAX tests' atol; then a small input
+    (16 points, 64 walks) on the card against the CPU, nine points in ten
+    at the gen tolerance and the rest within the walk's noise (the walls
+    are segment soups, _walk_close). Returns seconds by check."""
+    import dataclasses
+    from nmcfluid_torch.wost.solver import (WalkSettings, estimate_solution,
+                                            estimate_solution_and_gradient)
+    secs = {}
+    scenes = {dev: _mixed_scenes(dev) for dev in ("cuda", "cpu")}
+    for name, (pts, atol_s, pts_g, atol_p, atol_g) in MIXED_CASES.items():
+        scene, p_star, g_star = scenes["cuda"][name]
+        base = WalkSettings(walk_step_cap=256, ignore_dirichlet=False,
+                            solve_double_sided=name == "barrier",
+                            gen_group_pairs=256, pool_slots=4096,
+                            gen_step_cap=256, pool_step_cap=256)
+        x = torch.tensor(pts, device="cuda")
+        t0 = time.perf_counter()
+        p, n, _ = estimate_solution(scene, base, x, Key(0), 3000)
+        _sync()
+        secs[f"{name} solution"] = time.perf_counter() - t0
+        torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_s)
+        if not bool((n > 2000).all()):
+            raise AssertionError(f"{name}: valid walks {n.tolist()}")
+        x = torch.tensor(pts_g, device="cuda")
+        for algo in ("gen", "pool"):
+            s = dataclasses.replace(base, algo=algo)
+            t0 = time.perf_counter()
+            p, g, n = estimate_solution_and_gradient(scene, s, x, Key(2),
+                                                     3000)
+            _sync()
+            secs[f"{name} {algo}"] = time.perf_counter() - t0
+            torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_p)
+            torch.testing.assert_close(g, g_star(x), rtol=0, atol=atol_g)
+        # the small input, card against CPU
+        rng = np.random.default_rng(5)
+        xs = torch.from_numpy(rng.uniform(0.1, 1.9, (16, 2)).astype(
+            np.float32))
+        if name == "barrier":
+            xs[:, 0] = torch.where((xs[:, 0] - BAR_M).abs() < 0.05,
+                                   xs[:, 0] + 0.1, xs[:, 0])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sc = scenes[dev][name][0]
+            out[dev] = [
+                estimate_solution(sc, base, xs.to(dev), Key(7), 64)[0],
+                *estimate_solution_and_gradient(
+                    sc, dataclasses.replace(base, algo="pool"), xs.to(dev),
+                    Key(7), 64)[:2]]
+        spreads = [
+            estimate_solution(scenes["cpu"][name][0], base, xs, Key(8),
+                              64)[0],
+            *estimate_solution_and_gradient(
+                scenes["cpu"][name][0], dataclasses.replace(base,
+                                                            algo="pool"),
+                xs, Key(8), 64)[:2]]
+        for what, a, b, c, rtol, atol in zip(
+                ("solution", "pool p", "pool grad p"), out["cuda"],
+                out["cpu"], spreads, (2e-4, 2e-4, 2e-3), (2e-5, 2e-5, 2e-4)):
+            spread = float((b - c).pow(2).mean().sqrt()) / 2 ** 0.5
+            _walk_close(f"{name} {what}", a.cpu(), b, spread, rtol, atol,
+                        0.9)
+    print("mixed boundaries on the card: the screened mixed problem and the "
+          "double-sided barrier at the JAX tests' atol under "
+          "estimate_solution, gen and pool; the small input on the card "
+          "against the CPU; seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()}),
+          flush=True)
+    return secs
+
+
+def _image_scene_check(Key):
+    """(c): tests/test_images_scene.py's mixed problem posed from PFM
+    images written to a temporary directory, built with
+    scene_from_images on the card and walked by estimate_solution (2000
+    walks), held to p* at the JAX test's atol 0.07."""
+    import tempfile
+    from nmcfluid_torch.scenes.images import scene_from_images
+    from nmcfluid_torch.utils.pfm import write_pfm
+    from nmcfluid_torch.wost.solver import WalkSettings, estimate_solution
+    L, sig, R = 2.0, 5.0, 256
+    kx = np.pi / L
+    yy, xx = np.meshgrid((np.arange(R) + 0.5) / R * L,
+                         (np.arange(R) + 0.5) / R * L, indexing="ij")
+    p_img = (np.cos(kx * xx) * np.cos(kx * yy)).astype(np.float32)
+    isn = np.zeros((R, R), np.float32)
+    isn[R // 8: -R // 8, :] = 1.0
+    with tempfile.TemporaryDirectory() as d:
+        obj = os.path.join(d, "box.obj")
+        with open(obj, "w") as f:
+            f.write("".join(f"v {x} {y}\n" for x, y in
+                            [(0, 0), (L, 0), (L, L), (0, L)]))
+            f.write("".join(f"l {i + 1} {(i + 1) % 4 + 1}\n"
+                            for i in range(4)))
+        paths = {}
+        for name, img in (("source", (sig + 2 * kx ** 2) * p_img),
+                          ("dirichlet_value", p_img), ("is_neumann", isn)):
+            paths[name] = os.path.join(d, f"{name}.pfm")
+            write_pfm(paths[name], img.astype(np.float32))
+        scene, meta = scene_from_images(obj, absorption=sig, device="cuda",
+                                        **paths)
+    x = torch.tensor([[1.0, 0.4], [0.6, 1.5]], device="cuda")
+    t0 = time.perf_counter()
+    p, n, _ = estimate_solution(
+        scene, WalkSettings(walk_step_cap=128, ignore_dirichlet=False), x,
+        Key(0), 2000)
+    _sync()
+    dt = time.perf_counter() - t0
+    want = torch.cos(kx * x[:, 0]) * torch.cos(kx * x[:, 1])
+    torch.testing.assert_close(p, want, rtol=0, atol=0.07)
+    if not bool((n > 1200).all()):
+        raise AssertionError(f"image scene: valid walks {n.tolist()}")
+    print(f"image-driven scene: {int(meta['is_neumann_seg'].sum())} Neumann "
+          f"and {int((~meta['is_neumann_seg']).sum())} Dirichlet segments "
+          f"from PFMs, p {[round(v, 4) for v in p.tolist()]} against "
+          f"{[round(v, 4) for v in want.tolist()]} (atol 0.07), {dt:.3f} s",
+          flush=True)
+    return dt
+
+
+def _pool_against_gen(tg_source, Key):
+    """(a): one 65,536-point Taylor-Green chunk at 500 walks, the
+    divergence grid of TG's add_source state as the source, on the card:
+    pool against gen on the same streams (cv_warmup_pairs 16, a multiple
+    of gen_group_pairs 4): equal valid counts, p and grad p at
+    tests/test_gen.py's tolerances. Returns (gen s, pool s, pool trips,
+    pool steps)."""
+    import dataclasses
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.wost import gen, pool
+    from nmcfluid_torch.wost.solver import estimate_solution_and_gradient
+    fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda")
+    div = tfluid._divergence_grid(fluid, tg_source.params, tg_source.eps, 0)
+    pts, _ = tfluid._sample_pressure_cloud(fluid, Key(21))
+    ws = fluid.walk_settings
+    if ws.cv_warmup_pairs % ws.gen_group_pairs:
+        raise AssertionError("the warmup is not a multiple of the group")
+    out, secs = {}, {}
+    gen.counts.update(dict.fromkeys(gen.counts, 0))
+    pool.counts.update(dict.fromkeys(pool.counts, 0))
+    for algo in ("gen", "pool"):
+        _sync()
+        t0 = time.perf_counter()
+        out[algo] = estimate_solution_and_gradient(
+            fluid._wost_scene, dataclasses.replace(ws, algo=algo), pts,
+            Key(22), source_args=(div,))
+        _sync()
+        secs[algo] = time.perf_counter() - t0
+    (pg, gg, ng), (pp, gp, np_) = out["gen"], out["pool"]
+    if not torch.equal(ng, np_):
+        raise AssertionError(f"pool and gen valid counts differ at "
+                             f"{int((ng != np_).sum())} points")
+    torch.testing.assert_close(pp, pg, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(gp, gg, rtol=2e-3, atol=2e-4)
+    c = dict(pool.counts)
+    print(f"pool against gen at {pts.shape[0]} TG points x "
+          f"{ws.n_walks} walks: equal valid counts (mean "
+          f"{float(ng.float().mean()):.1f}), p max diff "
+          f"{float((pp - pg).abs().max()):.3e}, grad p "
+          f"{float((gp - gg).abs().max()):.3e}; gen {secs['gen']:.3f} s "
+          f"({gen.counts['generations']} generations, "
+          f"{gen.counts['steps']} steps), pool {secs['pool']:.3f} s "
+          f"({c['trips']} trips, {c['steps']} steps, "
+          f"{c['seconds']:.3f} s in the drain)", flush=True)
+    del fluid, div, out
+    torch.cuda.empty_cache()
+    return secs["gen"], secs["pool"], c["trips"], c["steps"]
+
+
+def walks_phase(tg_source, entries):
+    """The walk family on the card: (a) pool against gen, (b) the mixed
+    boundaries, (c) an image-driven scene, (d) one Taylor-Green step under
+    bvc at full width from TG's add_source state (one fit-kernel launch a
+    fit, bvc_walk and bvc_splat apart, peak memory, the TG error under
+    5e-3 as in the projections phase), each bvc solve first held card
+    against CPU on a small input (TG and karman). Returns the fit kernel's
+    report entry on the bvc path."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.transport.density import (raw_velocity_grid,
+                                                  tg_velocity_error)
+    from nmcfluid_torch.utils.keys import Key
+
+    t_phase = time.perf_counter()
+    fk.launches = 0
+    _pool_against_gen(tg_source, Key)
+    _mixed_boundary_checks(Key)
+    _image_scene_check(Key)
+    if fk.launches:
+        raise AssertionError("the walk checks launched the fit kernel")
+    errs = {n: check_small_projection(tfluid, get_scene(n), "bvc", Key)
+            for n in ("taylorgreen", "karman")}
+    # (d) TG under bvc at full width
+    fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda",
+                               projection="bvc")
+    fluid.profile, fluid.stage_times = True, {}
+    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    state = fluid.step(tg_source)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = fk.launches
+    stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+    if launches != 2:
+        raise AssertionError(f"taylorgreen bvc: {launches} fit-kernel "
+                             f"launches in the step, expected 2")
+    _check_finite(state, fluid._last_projection)
+    err_tg = tg_velocity_error(raw_velocity_grid(fluid, state.params, 1000))
+    print(f"taylorgreen bvc step: {wall:.2f} s, stages "
+          f"{json.dumps(stages)}, fit-kernel launches {launches}, P "
+          f"{float(state.P):.6e}, TG velocity error {err_tg:.6e}, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; B = {fluid._bvc.n_boundary} cache points x "
+          f"{fluid.walk_settings.n_walks} walks, E = {fluid.n_pressure}",
+          flush=True)
+    if not err_tg < 5e-3:
+        raise AssertionError(f"taylorgreen bvc: TG velocity error {err_tg}")
+    entry = next(e for e in entries if e["path"] == "taylorgreen")
+    out = dict(entry, path="taylorgreen bvc", launches=launches,
+               launches_per_frame=launches,
+               projection_err=errs["taylorgreen"])
+    del fluid, state
+    torch.cuda.empty_cache()
+    print(f"walks phase done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def cli_entries(fit_entries, launches):
     """Kernel-report entries of the fit kernel on the CLI's runs: the
     measurements of the scene's own path with the CLI's launch count."""
@@ -1121,6 +1454,7 @@ def main():
             name, projection, sources[name], entry, bands.get(name)))
     print(f"projections phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    fit_entries.append(walks_phase(sources["taylorgreen"], fit_entries))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

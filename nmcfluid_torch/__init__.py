@@ -13,8 +13,12 @@ field (sine, relu, elu or tanh), Adam phase fits (the fused fit: a
 hand-written CUDA kernel on the GPU, its plain PyTorch twin on the CPU;
 or the fresh-batch loop), the divergence grid, the pressure solve (the
 walk on stars with the generation executor, the DCT box solve with its
-circle, cylinder and sphere corrections, or the 2D boundary-element
-solve), and the density replay. Entry points:
+circle, cylinder and sphere corrections, the 2D boundary-element solve
+or its Monte Carlo variant, boundary value caching), and the density
+replay; beside the fluid, the whole 2D walk-on-stars family
+(wost/solver.py: Dirichlet and Neumann data, double-sided walks, the
+solution-only walk; wost/pool.py, the walker pool) and the scenes it
+solves from files (scenes/images.py, scenes/custom.py). Entry points:
 
     python -m nmcfluid_torch.run <scene> [flags]     simulate, save, resume
     python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}

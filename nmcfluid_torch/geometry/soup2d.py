@@ -57,12 +57,14 @@ def polyline_chain(pts):
         np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
 
 
-def build_segments(parts, pad: int = 8) -> Seg2D:
+def build_segments(parts, pad: int = 8,
+                   double_sided: bool = False) -> Seg2D:
     """Assemble a Seg2D (on the CPU) from [(verts, segs), ...] parts
     (numpy, float64). With d = b - a the normal (d.y, -d.x) must point out
-    of the fluid (walls: fluid on the left of d; obstacles clockwise). The
-    JAX package's double_sided variant (every interior vertex a candidate)
-    serves no ported walk and is left out."""
+    of the fluid (walls: fluid on the left of d; obstacles clockwise).
+    double_sided keeps every interior vertex as a silhouette candidate: a
+    vertex convex from one side is reflex from the other, so the static
+    drop holds for single-sided problems only (scene.h:84-90)."""
     all_a, all_b, all_n = [], [], []
     sv, sn1, sn2, s_always = [], [], [], []
     for verts, segs in parts:
@@ -94,7 +96,7 @@ def build_segments(parts, pad: int = 8) -> Seg2D:
                 d2 = d[j] / np.linalg.norm(d[j])
                 turn = d1[0] * d2[1] - d1[1] * d2[0]
                 # reflex (turn toward the fluid) <=> turn < 0
-                if turn < -_SIL_PRECISION:
+                if double_sided or turn < -_SIL_PRECISION:
                     sv.append(v)
                     sn1.append(nrm[i])
                     sn2.append(nrm[j])

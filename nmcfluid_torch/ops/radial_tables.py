@@ -1,10 +1,12 @@
-"""Inverse-CDF tables for the screened in-ball radius draw.
+"""Inverse-CDF tables for the in-ball radius draw.
 
 `build_table` is the JAX package's float64 numpy/scipy table, copied
 (nmcfluid/ops/radial_tables.py:33-57): the quantiles of the scale-free
 radial density of t = r/R, one row per log-spaced Z = sqrt(lam)*R, for
-the 2D and the 3D screened Green's function.
-`sample_t_screened_u` is the direct bilinear gather draw. The JAX package
+the 2D and the 3D screened Green's function; `build_harmonic2d_table`
+the one row of the 2D harmonic density 4 t ln(1/t) (:60-70).
+`sample_t_screened_u` and `sample_t_harmonic2d_u` are the direct gather
+draws. The JAX package
 draws on the TPU with a gather-free one-hot matmul form instead; the two
 agree to about 1 ulp (radial_tables.py:124-129), and on a GPU a per-lane
 gather is a plain load.
@@ -58,6 +60,18 @@ def build_table(dim: int) -> np.ndarray:
     return out
 
 
+def build_harmonic2d_table() -> np.ndarray:
+    """(N_U,) quantiles of the 2D harmonic radial density 4t*ln(1/t)."""
+    us = np.linspace(0.0, 1.0, _N_U)
+    s = np.linspace(1e-7, 1.0, _N_S)
+    rho = np.maximum(-4.0 * s * np.log(s), 0.0)
+    cdf = np.concatenate([[0.0], np.cumsum((rho[1:] + rho[:-1])
+                                           * np.diff(s) / 2.0)])
+    cdf /= cdf[-1]
+    cdf = np.maximum.accumulate(cdf)
+    return np.interp(us, cdf, s)
+
+
 _LOG_Z_MIN = math.log(_Z_MIN)
 _DLOG = (math.log(_Z_MAX) - _LOG_Z_MIN) / (_N_Z - 1)
 
@@ -70,12 +84,20 @@ def pack_quads(table: np.ndarray) -> np.ndarray:
         axis=-1))
 
 
-class QuadTable:
-    """pack_quads(build_table(dim)) in float32, built once on the host and
-    copied once to each device that asks for it."""
+def pack_pairs(table: np.ndarray) -> np.ndarray:
+    """(N_U,) -> (N_U-1, 2) linear-interpolation pairs [t0, t1]."""
+    return np.ascontiguousarray(np.stack([table[:-1], table[1:]], axis=-1))
 
-    def __init__(self, dim: int):
-        self._quads = pack_quads(build_table(dim)).astype("float32")
+
+class QuadTable:
+    """pack_quads(build_table(dim)) in float32 (dim 2 or 3), or with dim
+    "harmonic2d" pack_pairs(build_harmonic2d_table()), built once on the
+    host and copied once to each device that asks for it."""
+
+    def __init__(self, dim):
+        self._quads = (pack_pairs(build_harmonic2d_table())
+                       if dim == "harmonic2d"
+                       else pack_quads(build_table(dim))).astype("float32")
         self._on = {}           # device -> tensor copy of the table
 
     def on(self, device):
@@ -99,3 +121,14 @@ def sample_t_screened_u(table_quads, Z, u):
     q = table_quads[i0, j0]                          # (..., 4), one gather
     return ((1 - wi) * ((1 - wj) * q[..., 0] + wj * q[..., 1])
             + wi * ((1 - wj) * q[..., 2] + wj * q[..., 3]))
+
+
+def sample_t_harmonic2d_u(table_pairs, u):
+    """t = r/R from a uniform u by linear inverse-CDF lookup in the 2D
+    harmonic table. `table_pairs`: float32 tensor
+    pack_pairs(build_harmonic2d_table()) on u's device."""
+    uj = u * (_N_U - 1)
+    j0 = torch.clamp(torch.floor(uj).to(torch.int64), 0, _N_U - 2)
+    wj = uj - j0
+    p = table_pairs[j0]                              # (..., 2), one gather
+    return (1 - wj) * p[..., 0] + wj * p[..., 1]

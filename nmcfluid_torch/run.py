@@ -48,17 +48,20 @@ def build_parser():
     p.add_argument("--div_resolution", type=int, default=None)
     p.add_argument("--n_walks", type=int, default=None)
     p.add_argument("--walk_step_cap", type=int, default=64,
-                   help="the lockstep executor's step cap (no effect on "
-                        "the generation executor)")
+                   help="the solution-only walk's step cap (no effect on "
+                        "the gradient executors; pool mode caps at "
+                        "--pool_step_cap)")
     p.add_argument("--walk_algo", default="gen",
                    choices=["pool", "gen", "lockstep"],
                    help="WoSt gradient executor: point-aligned "
-                        "generations; 'pool' and 'lockstep' are not "
-                        "ported yet")
+                        "generations ('gen') or the compacted walker pool "
+                        "('pool'); 'lockstep' is in ROADMAP's \"Do not "
+                        "port\" list and raises")
     p.add_argument("--pool_step_cap", type=int, default=1024)
     p.add_argument("--adaptive_walks", type=float, default=0.0,
-                   help="adaptive MC walk allocation (pool mode; not "
-                        "ported yet); 0 = the reference's fixed n_walks")
+                   help="adaptive MC walk allocation (pool mode; a "
+                        "measured negative, not ported); 0 = the "
+                        "reference's fixed n_walks")
     p.add_argument("--grad_clip", type=float, default=-1.0,
                    help="global-l2 gradient clip for the phase fits, "
                         "<=0 off (config.py --grad_clip)")
@@ -109,8 +112,9 @@ def build_parser():
                    help="the pressure solve: 'wost' the Monte Carlo walk "
                         "on stars; 'spectral' the DCT box solve (with the "
                         "circle, cylinder or sphere correction); 'bem' the "
-                        "2D boundary-element solve; 'bvc' is not ported "
-                        "yet")
+                        "2D boundary-element solve; 'bvc' the 2D boundary "
+                        "value caching (a walk at the boundary cache, the "
+                        "BEM splat elsewhere)")
     # scene-hyperparameter overrides (config.py:87-156 argparse surface)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--dt", type=float, default=None)
@@ -130,7 +134,7 @@ def build_parser():
     p.add_argument("--absorption", type=float, default=None,
                    help="screening coefficient sigma (wost.json "
                         "absorptionCoeff; 350 in every shipped config); "
-                        "the walk takes sigma > 0 only")
+                        "0 walks with the harmonic Green's functions")
     p.add_argument("--ckpt", type=int, default=-1,
                    help="resume from step N (config.py --ckpt). Like the "
                         "reference's loop, --n_timesteps counts steps run "
@@ -195,14 +199,15 @@ def scene_with_overrides(args):
 
 def make_fluid(args):
     """The NeuralFluid of the flags; raises NotImplementedError for what
-    the port does not have yet. --walk_step_cap and --pool_step_cap only
-    cap the lockstep and pool executors, which are not ported, and
-    --fit_unroll changes no result."""
+    the port does not have. --fit_unroll changes no result."""
     scene = scene_with_overrides(args)
     ws = None
-    if args.n_walks or args.walk_algo != "gen" or args.adaptive_walks > 0.0:
+    if (args.n_walks or args.walk_step_cap != 64 or args.walk_algo != "gen"
+            or args.pool_step_cap != 1024 or args.adaptive_walks > 0.0):
         ws = scene.walk_settings(n_walks=args.n_walks or scene.n_walks,
+                                 walk_step_cap=args.walk_step_cap,
                                  algo=args.walk_algo,
+                                 pool_step_cap=args.pool_step_cap,
                                  adaptive_walks=args.adaptive_walks)
     return NeuralFluid(scene,
                        max_n_iters=args.max_n_iters,

@@ -23,6 +23,10 @@ Per projection, for (Lap - sigma) u = -f with zero-Neumann walls:
      ties) and V_sigma the potential of f == sigma: the shift cancels the
      splat's quadrature error where it is worst, next to the boundary.
 
+`BvcProjector` is the Monte Carlo variant, zombie's boundary value
+caching as a projection: the cache values come from a WoSt walk at the
+cache points instead of the Nystrom solve (no inverse, no cache file).
+
 The host precompute is float64 numpy/scipy; the device holds the kernel
 spectra as complex64, the inverse, the cache and the constant problem's
 potentials as float32, and runs FFTs, bilinear gathers, one matvec and
@@ -32,6 +36,7 @@ box.
 """
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -206,7 +211,8 @@ class BemProjector:
     points and constant-problem potential match this scene's."""
 
     def __init__(self, scene, div_resolution, n_boundary=None,
-                 eval_chunk=8192, r_max=None, cache_dir=None, device="cpu"):
+                 eval_chunk=8192, r_max=None, cache_dir=None, device="cpu",
+                 nystrom=True):
         if scene.dim != 2:
             raise ValueError("--projection bem is 2D-only (3D scenes are "
                              "box-exact under --projection spectral)")
@@ -273,9 +279,10 @@ class BemProjector:
                     + (1 - tx) * ty * grid[i0, j0 + 1]
                     + tx * ty * grid[i0 + 1, j0 + 1])
 
+        # the BVC subclass walks its cache values and needs no inverse
         A_inv = self._load_or_build_A(scene, pts, nrm, w,
                                       host_bilerp(Vc, pts), div_resolution,
-                                      cache_dir)
+                                      cache_dir) if nystrom else None
 
         dev = self.device
 
@@ -292,7 +299,7 @@ class BemProjector:
         self.cache_pts = f32(pts)
         self.cache_n = f32(nrm)
         self.cache_w = f32(w)
-        self.A_inv = f32(A_inv)
+        self.A_inv = f32(A_inv) if A_inv is not None else None
 
     def _load_or_build_A(self, scene, pts, nrm, w, Vc_cache,
                          div_resolution, cache_dir):
@@ -378,3 +385,68 @@ def _splat(bp, u_gamma, V, Gx, Gy, pts):
         us.append(u)
         gs.append(g)
     return torch.cat(us), torch.cat(gs)
+
+
+# ---------------------------------------------------------- MC-cached (BVC)
+
+class BvcProjector(BemProjector):
+    """Monte Carlo boundary value caching as a projection (bem.py:462-512):
+    WoSt estimates the solution once at the boundary cache, and the splat
+    of the BEM path (`_splat`, the same code) carries it to the pressure
+    cloud. The du/dn cache term is zero for the fluid's pure-Neumann
+    projection, so only the solution is cached; the walk runs at points
+    offset 2 epsilon_shell into the fluid (cache_pts - 2 eps cache_n), on
+    the executor walk_settings.algo names, with the divergence grid as its
+    source."""
+
+    def __init__(self, scene, div_resolution, wost_scene, walk_settings,
+                 n_walks=None, n_boundary=None, offset=None, **kw):
+        super().__init__(scene, div_resolution, n_boundary=n_boundary,
+                         nystrom=False, **kw)
+        self.wost_scene = wost_scene
+        self.walk_settings = walk_settings
+        self.n_walks = n_walks
+        off = offset if offset is not None \
+            else 2.0 * walk_settings.epsilon_shell
+        self.inner_pts = self.cache_pts - off * self.cache_n
+
+    def solve(self, div_grid, pts, key, times=None):
+        """p and grad p at pts (E, 2). With a dict `times`, the seconds of
+        the cache walk ("bvc_walk", the volume potentials included) and of
+        the splat ("bvc_splat") are added to it, by CUDA events on the
+        card."""
+        from ..wost.solver import estimate_solution_and_gradient
+        cuda = times is not None and pts.is_cuda
+        if times is not None:
+            marks = [_mark(cuda)]
+        V, Gx, Gy = _volume_potentials(self, div_grid)
+        u_gamma, _, _ = estimate_solution_and_gradient(
+            self.wost_scene, self.walk_settings, self.inner_pts, key,
+            n_walks=self.n_walks, source_args=(div_grid,))
+        if times is not None:
+            marks.append(_mark(cuda))
+        out = _splat(self, u_gamma, V, Gx, Gy, pts)
+        if times is not None:
+            marks.append(_mark(cuda))
+            for name, a, b in (("bvc_walk", 0, 1), ("bvc_splat", 1, 2)):
+                times[name] = times.get(name, 0.0) + _elapsed(marks[a],
+                                                              marks[b])
+        return out
+
+
+def _mark(cuda):
+    """A time mark: a recorded CUDA event on the card, else the host
+    clock."""
+    if not cuda:
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _elapsed(a, b):
+    """Seconds between two marks of _mark."""
+    if isinstance(a, float):
+        return b - a
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3

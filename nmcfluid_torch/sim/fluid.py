@@ -19,8 +19,10 @@ fused fit is the hand-written kernel; on the CPU its plain twin. The
 divergence grid is 1000^2 in 2D and vis_resolution^3 in 3D. The pressure
 solve is the projection: "wost" walks on stars (the reference's Monte
 Carlo solve), "spectral" is the DCT box solve with the modal correction
-of a circle, cylinder or sphere obstacle (sim/spectral.py, ops/*_modes.py)
-and "bem" the boundary-element solve of any 2D scene (sim/bem.py).
+of a circle, cylinder or sphere obstacle (sim/spectral.py, ops/*_modes.py),
+"bem" the boundary-element solve of any 2D scene (sim/bem.py) and "bvc"
+its Monte Carlo variant, a walk at the boundary cache only (BvcProjector).
+The walk runs on the executor walk_settings.algo names: "gen" or "pool".
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
@@ -39,10 +41,10 @@ from ..models.boundary import apply_boundary
 from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             init_siren)
 from ..utils.keys import Key
-from ..wost.gen import estimate_solution_and_gradient_gen
-from ..wost.solver import WalkSettings, WostScene, check_supported
+from ..wost.solver import (WalkSettings, WostScene, check_supported,
+                           estimate_solution_and_gradient)
 from . import sampling
-from .bem import BemProjector
+from .bem import BemProjector, BvcProjector
 from .fitkernel import ADAM_B1, ADAM_B2, ADAM_EPS, fused_adam_fit
 from .spectral import grid_gradient, solve_screened_poisson
 
@@ -78,10 +80,10 @@ def _unsupported(flag, value):
 class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
-    Takes the JAX package's constructor arguments; those not ported yet
-    (projection "bvc", fit_ensemble, wost_source, mesh, and under "wost"
-    walk settings or an absorption the walk does not take) raise
-    NotImplementedError here, and the projections the JAX package refuses
+    Takes the JAX package's constructor arguments; those not ported
+    (fit_ensemble, wost_source, mesh, and under "wost" or "bvc" the walk
+    settings of ROADMAP's "Do not port" list) raise NotImplementedError
+    here, and the projections the JAX package refuses
     (spectral on a scene whose obstacle is not one circle, bem in 3D)
     ValueError.
     fit_mode "auto" resolves to "fused" on every device (the JAX package
@@ -132,8 +134,6 @@ class NeuralFluid:
                 ("wost_source", wost_source, "grid"), ("mesh", mesh, None)):
             if value != default:
                 _unsupported(flag, value)
-        if projection == "bvc":
-            _unsupported("projection", projection)
         if fit_mode not in ("auto", "fused", "xla"):
             raise ValueError(f"NeuralFluid: unknown fit_mode {fit_mode!r}")
         if lr_schedule not in ("constant", "cosine", "tail"):
@@ -143,6 +143,7 @@ class NeuralFluid:
         self.device = get_device(device)
         self.projection = projection
         self._bem = None        # the BemProjector, built at first use
+        self._bvc = None        # the BvcProjector, built at first use
         self.adv_ref = bool(adv_ref)
         self.fit_mode = "fused" if fit_mode == "auto" else fit_mode
         self.lr_schedule = lr_schedule
@@ -183,7 +184,7 @@ class NeuralFluid:
         self._wost_scene = WostScene(
             dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
             absorption=scene.absorption)
-        if projection == "wost":
+        if projection in ("wost", "bvc"):
             # raise now, not at the first walk, for what the walk does not
             # take
             check_supported(self._wost_scene, self.walk_settings)
@@ -321,6 +322,15 @@ class NeuralFluid:
                         device=self.device))
             pts, valid, p, grad_p = self._timed(
                 "bem_solve", _pressure_solve_bem, self, self._bem, div_grid,
+                k_wost)
+        elif self.projection == "bvc":
+            if self._bvc is None:
+                self._bvc = self._timed(
+                    "bvc_precompute", lambda: BvcProjector(
+                        self.scene, self.div_resolution, self._wost_scene,
+                        self.walk_settings, device=self.device))
+            pts, valid, p, grad_p = self._timed(
+                "bvc_solve", _pressure_solve_bvc, self, self._bvc, div_grid,
                 k_wost)
         else:
             chunks = [self._timed("wost_solve", _pressure_solve, self,
@@ -714,7 +724,7 @@ def _pressure_solve(fluid, source_args, key):
     k1, k2 = key.split(2)
     pts, valid = _sample_pressure_cloud(fluid, k1)
     with torch.no_grad():
-        p, grad_p, _ = estimate_solution_and_gradient_gen(
+        p, grad_p, _ = estimate_solution_and_gradient(
             fluid._wost_scene, fluid.walk_settings, pts, k2,
             source_args=source_args)
     return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
@@ -727,6 +737,22 @@ def _pressure_solve_bem(fluid, bp, div_grid, key):
     pts, valid = sampling.fluid_points(key, fluid.n_pressure, fluid.scene,
                                        device=fluid.device)
     p, grad_p = bp.solve(div_grid, pts)
+    return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
+
+
+def _pressure_solve_bvc(fluid, bp, div_grid, key):
+    """The boundary-value-caching projection (BvcProjector): the walk at
+    the boundary cache only, the splat to a pressure cloud of n_pressure
+    points drawn with the first split of `key` (the walk takes the
+    second), with the walk's boundary masking. With profile on, the walk
+    and the splat add their seconds to stage_times["bvc_walk"] and
+    ["bvc_splat"]."""
+    k1, k2 = key.split(2)
+    pts, valid = sampling.fluid_points(k1, fluid.n_pressure, fluid.scene,
+                                       device=fluid.device)
+    with torch.no_grad():
+        p, grad_p = bp.solve(div_grid, pts, k2, times=(
+            fluid.stage_times if fluid.profile else None))
     return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
 
 

@@ -41,7 +41,7 @@ S` runs them after add_source, and prints the TG error a frame (row 0
 the checkpoint's), its growth and mean (curve_stats), and writes the
 rows to --curve_out: the curve of the port's step from any starting
 state, such as the JAX package's own add_source, under the projection
---projection (wost, spectral or bem; default wost).
+--projection (wost, spectral, bem or bvc; default wost).
 
 Runs on the card unless given --device cpu (then with --small, a reduced
 size for a rehearsal).
@@ -225,7 +225,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--curve_out", default=None)
     ap.add_argument("--projection", default="wost",
-                    choices=["wost", "spectral", "bem"],
+                    choices=["wost", "spectral", "bem", "bvc"],
                     help="with --frames: the steps' pressure solve")
     args = ap.parse_args(argv)
     if args.curve:

@@ -11,6 +11,9 @@ interface:
     key.uniform(shape, device, lo, hi) -> float32 tensor in [lo, hi)
     key.normal(shape, device)          -> float32 tensor, standard normal
     key.randint(shape, lo, hi, device) -> int64 tensor in [lo, hi)
+    key.categorical(logits, shape)     -> int64 tensor of indices into the
+                                          last axis of `logits`, on its
+                                          device
     key.stream_seed()                  -> uint32 seed for ops.fastrand
 
 `Key` below is the default: each key is a 64-bit integer, children come
@@ -72,6 +75,17 @@ class Key:
     def randint(self, shape, lo, hi, device):
         return torch.randint(lo, hi, tuple(shape), generator=self._generator(),
                              dtype=torch.int64).to(device)
+
+    def categorical(self, logits, shape):
+        """Draws from softmax(logits) over its last axis by the Gumbel-max
+        rule, as jax.random.categorical: argmax(logits + Gumbel noise)
+        with noise of shape `shape` + logits.shape[-1:]."""
+        k = logits.shape[-1]
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand(tuple(shape) + (k,), generator=self._generator(),
+                       dtype=torch.float32).clamp_(min=tiny)
+        gumbel = -torch.log(-torch.log(u)).to(logits.device)
+        return torch.argmax(gumbel + logits, dim=-1)
 
     def stream_seed(self) -> int:
         return (self.value ^ (self.value >> 32)) & 0xFFFFFFFF

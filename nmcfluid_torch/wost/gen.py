@@ -17,16 +17,19 @@ lanes, which gives the same sums as the JAX package's one-shot compaction
 (phase A/B, gen.py:144-192).
 
 Estimator math (antithetic first samples, two-stage frozen control
-variates with a group-aligned warmup, e^{-Z}-cancelled gradient ratios)
-is the JAX package's, line for line.
+variates with a group-aligned warmup, e^{-Z}-cancelled gradient ratios,
+the Dirichlet terminal fold, single- and double-sided) is the JAX
+package's, line for line.
 """
 import torch
 
 from ..ops import fastrand
 from .pool import (_SALT_JIT_B, _SALT_JIT_S, _SALT_U2A, _SALT_U2B,
                    PointData, _first_greens, _precompute, _strat_dir)
-from .solver import (ACTIVE, DONE_RR, DROP_MAXLEN, WalkSettings, WalkState,
-                     WostScene, _advance, _fresh_state, check_supported)
+from .solver import (ACTIVE, DONE_DIRICHLET, DONE_RR, DROP_MAXLEN,
+                     WalkSettings, WalkState, WostScene, _advance,
+                     _fresh_state, check_supported, has_terminal,
+                     terminal_values)
 
 # walk counts since the caller last zeroed them: generations run, steps
 # advanced (one `_advance` each) and the lanes those steps advanced; read
@@ -48,17 +51,22 @@ def _start_aligned(scene, settings, pd: PointData, seed2, w, live,
     sign = 1.0 - 2.0 * a.to(torch.float32)
     rot = pd.rot                                             # (N, D-1)
 
-    dir_s = _strat_dir(seed2, w, i, _SALT_JIT_S, rot, 0.0, n_pairs, D)
-    u2 = torch.stack([fastrand.uniform(seed2, w, _SALT_U2A, i),
-                      fastrand.uniform(seed2, w, _SALT_U2B, i)], dim=-1)
-    ball_b = type(pd.ball1)(*(leaf[None, None, :] for leaf in pd.ball1))
-    r_s, _ = g1.sample_radius_u(ball_b, u2)                  # (G, 1, N)
-    y_vol = pd.pts + (sign[..., None] * (r_s * 1.0)[..., None] * dir_s)
-    first_src = pd.norm1 * scene.source_fn(y_vol, *source_args)
-    sgd_vec = (sign * r_s
-               * g1.grad_norm_over_eval(ball_b, r_s))[..., None] * dir_s
-    first_src = first_src.expand(lanes)
-    sgd_vec = sgd_vec.expand(lanes + (D,))
+    if settings.ignore_source:
+        first_src = torch.zeros(lanes, dtype=torch.float32, device=dev)
+        sgd_vec = torch.zeros(lanes + (D,), dtype=torch.float32, device=dev)
+    else:
+        dir_s = _strat_dir(seed2, w, i, _SALT_JIT_S, rot, 0.0, n_pairs, D)
+        u2 = torch.stack([fastrand.uniform(seed2, w, _SALT_U2A, i),
+                          fastrand.uniform(seed2, w, _SALT_U2B, i)], dim=-1)
+        ball_b = type(pd.ball1)(*(leaf[None, None, :] for leaf in pd.ball1))
+        r_s, _ = g1.sample_radius_u(ball_b, u2)              # (G, 1, N)
+        y_vol = pd.pts + (sign[..., None] * (r_s * 1.0)[..., None]
+                          * dir_s)
+        first_src = pd.norm1 * scene.source_fn(y_vol, *source_args)
+        sgd_vec = (sign * r_s
+                   * g1.grad_norm_over_eval(ball_b, r_s))[..., None] * dir_s
+        first_src = first_src.expand(lanes)
+        sgd_vec = sgd_vec.expand(lanes + (D,))
 
     dir_b = _strat_dir(seed2, w, i, _SALT_JIT_B, rot, 0.5, n_pairs, D)
     bgd_vec = ((sign * pd.bgd)[..., None] * dir_b).expand(lanes + (D,))
@@ -71,13 +79,15 @@ def _start_aligned(scene, settings, pd: PointData, seed2, w, live,
 
 
 def _run_generation(scene, greens, settings, st: WalkState, pl, seed_w,
-                    source_args):
+                    source_args, keep_x=False):
     """Advance the flat lanes of `st` (S,) until none is active or
     `gen_step_cap` steps have run, advancing only the active lanes.
-    Returns the final (acc, status) of every lane."""
+    Returns the final (acc, status) of every lane, and with keep_x its
+    final (x, thr) too (the Dirichlet terminal fold reads them)."""
     cap = settings.gen_step_cap
     acc = st.acc.clone()
     status = st.status.clone()
+    x, thr = (st.x.clone(), st.thr.clone()) if keep_x else (None, None)
     idx = torch.arange(status.shape[0], device=status.device)
     sub, pl_sub = st, pl
     counts["generations"] += 1
@@ -93,6 +103,9 @@ def _run_generation(scene, greens, settings, st: WalkState, pl, seed_w,
                        step_cap=cap)
         acc[idx] = sub.acc
         status[idx] = sub.status
+        if keep_x:
+            x[idx] = sub.x
+            thr[idx] = sub.thr
         keep = (sub.status == ACTIVE).nonzero().squeeze(1)
         if keep.numel() == 0:
             break
@@ -100,6 +113,8 @@ def _run_generation(scene, greens, settings, st: WalkState, pl, seed_w,
             idx, pl_sub = idx[keep], pl_sub[keep]
             sub = WalkState(*(f[keep] for f in sub))
     status = torch.where(status == ACTIVE, DROP_MAXLEN, status)
+    if keep_x:
+        return acc, status, x, thr
     return acc, status
 
 
@@ -119,11 +134,17 @@ def _gen_group(scene: WostScene, settings: WalkSettings, n_pairs, n_anti,
     i = torch.arange(N, device=dev).reshape(1, 1, N)
     pl = (w * N + i).expand(G, n_anti, N).reshape(-1)
     flat = WalkState(*(f.reshape((-1,) + f.shape[3:]) for f in st))
-    acc, status = _run_generation(scene, scene.greens(), settings, flat, pl,
-                                  seed_w, source_args)
-    total = acc.reshape(G, n_anti, N)
+    fold = has_terminal(scene, settings)
+    out = _run_generation(scene, scene.greens(), settings, flat, pl, seed_w,
+                          source_args, keep_x=fold)
+    total, status = out[0], out[1]
+    if fold:
+        # the Dirichlet terminal fold (gen.py:196-208)
+        x, thr = out[2], out[3]
+        total = total + thr * terminal_values(scene, settings, x, status)
+    total = total.reshape(G, n_anti, N)
     status = status.reshape(G, n_anti, N)
-    valid = (status == DONE_RR) & ok
+    valid = ((status == DONE_RR) | (status == DONE_DIRICHLET)) & ok
     vf = valid.to(torch.float32)
     bc = total - first_src
     gvec = ((bc - cv[:, 0])[..., None] * bgd_vec

@@ -1,27 +1,56 @@
-"""Per-point preamble and first-step draws of the WoSt gradient estimator
-(the parts of nmcfluid/wost/pool.py that the generation executor uses).
+"""Compacted walker-pool executor of the WoSt gradient estimator, and the
+per-point preamble and first-step draws it shares with the generation
+executor (port of nmcfluid/wost/pool.py).
 
-The compacted walker-pool executor itself is not ported yet.
+Walks are drawn from a global work queue into a fixed pool of S slots.
+Every `pool_refill_every` steps terminated lanes scatter their
+contribution into per-point running sums (one index_add_) and their
+slots are refilled from the queue (prefix-sum slot assignment), so the
+work tracks the sum of walk lengths (walk_on_stars.h:91-104). A lane id g
+enumerates (pair, antithetic half, point); its start state is regenerated
+from counter streams keyed on (pair, point), and its continuation draws
+on (its own step count, pair * N + point): the generation executor's
+streams (wost/gen.py), so the two executors walk the same walks and
+agree to reduction order when the control-variate warmup is a multiple
+of gen_group_pairs.
+
+The JAX package drains the pool in an in-graph while loop; here each trip
+(scatter + refill, then `pool_refill_every` steps) is eager PyTorch and
+the host reads one flag a trip to stop. Adaptive walk allocation (a
+measured negative) is not ported.
 """
-from typing import NamedTuple
-
 import math
+import time
+from typing import NamedTuple
 
 import torch
 
 from ..ops import fastrand
 from ..ops.sampling import pdf_unit_sphere, unit_sphere_from_u
-from .solver import RADIUS_SHRINK, _dirichlet_dist
+from .solver import (ACTIVE, DONE_DIRICHLET, DONE_RR, RADIUS_SHRINK,
+                     WalkSettings, WalkState, WostScene, _advance,
+                     _dirichlet_dist, _fresh_state, _harmonic,
+                     check_supported, has_terminal, terminal_values)
+
+EMPTY = -1  # slot status: no walk assigned (distinct from ACTIVE/terminal)
 
 # fastrand salts for the first-sample streams (the walk steps use salts
-# 0-5 on their own seed; these run on an independent seed)
+# 0-8 on their own seed; these run on an independent seed)
 _SALT_JIT_S = 8    # source-direction stratum jitter (+1 = 2nd axis in 3D)
 _SALT_U2A, _SALT_U2B = 10, 11   # in-ball radius uniforms
 _SALT_JIT_B = 12   # boundary-direction stratum jitter (+1 in 3D)
 
+# pool counts since the caller last zeroed them: drains run, trips
+# (scatter + refill, then pool_refill_every steps), steps advanced and the
+# seconds spent draining; read by chip_smoke.py
+counts = {"drains": 0, "trips": 0, "steps": 0, "seconds": 0.0}
+
 
 class PointData(NamedTuple):
-    """Per-evaluation-point precomputes (N,) unless noted."""
+    """Per-evaluation-point precomputes (N,) unless noted. `packed` holds
+    every per-point field a refill reads as one (N, K) row matrix, so a
+    refill gathers one row a lane: [pts (D) | rot (D-1) | R1 | norm1 |
+    thr1 | bgd | degenerate | ball leaves]."""
     pts: torch.Tensor         # (N, D)
     R1: torch.Tensor          # first ball radius (walk_on_stars.h:486)
     ball1: object             # greens2d.Ball or greens3d.Ball, (N,) fields
@@ -30,11 +59,26 @@ class PointData(NamedTuple):
     norm1: torch.Tensor       # first-ball source norm
     thr1: torch.Tensor        # first-ball throughput
     bgd: torch.Tensor         # boundaryGradientDirection coefficient
+    packed: torch.Tensor      # (N, K)
+
+
+class PoolCarry(NamedTuple):
+    next_lane: int            # next queue index not yet issued
+    st: WalkState             # (S,) walker lanes
+    g: torch.Tensor           # (S,) int64 lane id (stale when EMPTY)
+    ok: torch.Tensor          # (S,) 1.0 unless the lane's point is degenerate
+    first_src: torch.Tensor   # (S,) first ball source sample
+    bgd_vec: torch.Tensor     # (S, D) signed boundaryGradientDirection
+    sgd_vec: torch.Tensor     # (S, D) signed sourceGradientDirection
+    acc: torch.Tensor         # (N, 3 + D) running sums:
+    # [sum_sol | sum_first | n_valid | sum_grad (D)]
 
 
 def _first_greens(scene, settings):
-    """Green's fn of the FIRST ball. A delayed Tikhonov start would make
-    it harmonic; that setting is rejected by solver.check_supported."""
+    """Green's function of the FIRST ball: harmonic while Tikhonov is
+    delayed (steps_before_tikhonov > 0)."""
+    if scene.absorption > 0.0 and settings.steps_before_tikhonov > 0:
+        return _harmonic(scene.dim)
     return scene.greens()
 
 
@@ -49,10 +93,25 @@ def _precompute(scene, settings, pts, key):
     R1 = torch.clamp(R1, min=1e-6)
     ball1 = g1.make_ball(R1)
     rot = key.fold_in(0xC0FFEE).uniform((pts.shape[0], D - 1), pts.device)
-    return PointData(
-        pts=pts, R1=R1, ball1=ball1, degenerate=degenerate, rot=rot,
-        norm1=g1.norm(ball1), thr1=g1.pk_over_uniform(ball1),
-        bgd=g1.pk_grad_over_thr(ball1) * R1 / pdf_unit_sphere(D))
+    norm1 = g1.norm(ball1)
+    thr1 = g1.pk_over_uniform(ball1)
+    bgd = g1.pk_grad_over_thr(ball1) * R1 / pdf_unit_sphere(D)
+    cols = [pts, rot, R1[:, None], norm1[:, None], thr1[:, None],
+            bgd[:, None], degenerate.to(torch.float32)[:, None]]
+    cols += [leaf[:, None] for leaf in ball1]
+    return PointData(pts=pts, R1=R1, ball1=ball1, degenerate=degenerate,
+                     rot=rot, norm1=norm1, thr1=thr1, bgd=bgd,
+                     packed=torch.cat(cols, dim=1))
+
+
+def _unpack_row(row, D, ball_type):
+    """Split packed (S, K) rows back into the per-lane fields."""
+    pts = row[:, 0:D]
+    rot = row[:, D:2 * D - 1]
+    R1, norm1, thr1, bgd, degen = (row[:, 2 * D - 1 + j] for j in range(5))
+    n_leaves = len(ball_type._fields)
+    ball = ball_type(*(row[:, 2 * D + 4 + j] for j in range(n_leaves)))
+    return pts, rot, R1, norm1, thr1, bgd, degen, ball
 
 
 def _strat_dir(seed2, w, i, salt, rot_i, shift, n_pairs, D):
@@ -78,3 +137,212 @@ def _strat_dir(seed2, w, i, salt, rot_i, shift, n_pairs, D):
                           .to(torch.float32) + j1) / b
                          + rot_i[..., 1] + shift, 1.0)
     return unit_sphere_from_u(torch.stack([u0, u1], dim=-1), 3)
+
+
+def _decode(g, n_anti, N):
+    """Lane id -> (pair w, antithetic half a, point i, sign): the queue
+    enumerates (pair, half, point), point fastest."""
+    i = torch.remainder(g, N)
+    wa = torch.div(g, N, rounding_mode="floor")
+    a = torch.remainder(wa, n_anti)
+    w = torch.div(wa, n_anti, rounding_mode="floor")
+    sign = 1.0 - 2.0 * a.to(torch.float32)
+    return w, a, i, sign
+
+
+def _start_states(scene, settings, pd: PointData, seed2, g, source_args,
+                  n_pairs, n_anti, N):
+    """Start states for lane ids g (S,): the first-ball antithetic source
+    sample and the first step to the ball's surface, regenerated from
+    counter streams keyed on (pair, point); the per-point data arrives
+    through one packed row gather."""
+    D = scene.dim
+    g1 = _first_greens(scene, settings)
+    w, _, i, sign = _decode(g, n_anti, N)
+    row = pd.packed[i]                                 # (S, K), one gather
+    pts_i, rot_i, R1_i, norm1_i, thr1_i, bgd_i, degen_i, ball_i = \
+        _unpack_row(row, D, type(pd.ball1))
+
+    if settings.ignore_source:
+        first_src = torch.zeros(g.shape, dtype=torch.float32,
+                                device=g.device)
+        sgd_vec = torch.zeros(g.shape + (D,), dtype=torch.float32,
+                              device=g.device)
+    else:
+        dir_s = _strat_dir(seed2, w, i, _SALT_JIT_S, rot_i, 0.0, n_pairs, D)
+        u2 = torch.stack([fastrand.uniform(seed2, w, _SALT_U2A, i),
+                          fastrand.uniform(seed2, w, _SALT_U2B, i)], dim=-1)
+        r_s, _ = g1.sample_radius_u(ball_i, u2)
+        y_vol = pts_i + (sign * r_s)[..., None] * dir_s
+        first_src = norm1_i * scene.source_fn(y_vol, *source_args)
+        # sourceGradientDirection, as the e^{-z}-free joint ratio
+        sgd_vec = (sign * r_s * g1.grad_norm_over_eval(ball_i, r_s)
+                   )[..., None] * dir_s
+
+    dir_b = _strat_dir(seed2, w, i, _SALT_JIT_B, rot_i, 0.5, n_pairs, D)
+    bgd_vec = (sign * bgd_i)[..., None] * dir_b
+    x0 = pts_i + (sign * R1_i)[..., None] * dir_b
+    st = _fresh_state(x0, thr=thr1_i, acc=first_src)
+    return st, 1.0 - degen_i, first_src, bgd_vec, sgd_vec
+
+
+def _scatter_refill(scene, settings, pd: PointData, seed2, g_hi, cv,
+                    carry: PoolCarry, source_args, n_pairs, n_anti, N):
+    """Terminated lanes fold their contributions into the per-point sums
+    (one index_add_); freed slots take the next queued lane ids
+    (prefix-sum ranks). `cv` is (N, 2): [cv_b | cv_s]. Returns the new
+    carry and whether the queue is empty and every slot EMPTY."""
+    st = carry.st
+    term = (st.status != ACTIVE) & (st.status != EMPTY)
+    _, _, i, _ = _decode(carry.g, n_anti, N)
+
+    total = st.acc
+    if has_terminal(scene, settings):
+        total = total + st.thr * terminal_values(scene, settings, st.x,
+                                                 st.status)
+    valid = (term & ((st.status == DONE_RR) | (st.status == DONE_DIRICHLET))
+             & (carry.ok > 0.5))
+
+    cv_i = cv[i]                                       # (S, 2), one gather
+    bc = total - carry.first_src       # the boundary (continuation) part
+    gvec = ((bc - cv_i[:, 0])[..., None] * carry.bgd_vec
+            + (carry.first_src - cv_i[:, 1])[..., None] * carry.sgd_vec)
+    vf = valid.to(torch.float32)
+    contrib = torch.cat([(vf * total)[:, None], (vf * carry.first_src)[:, None],
+                         vf[:, None], vf[:, None] * gvec], dim=1)
+    acc = carry.acc.index_add(0, i, contrib)
+
+    # ---- refill the freed slots from the queue
+    free = term | (st.status == EMPTY)
+    rank = torch.cumsum(free.to(torch.int64), 0) - 1
+    new_g = carry.next_lane + rank
+    take = free & (new_g < g_hi)
+    st_new, ok_new, fs_new, bv_new, sv_new = _start_states(
+        scene, settings, pd, seed2, torch.where(take, new_g, 0), source_args,
+        n_pairs, n_anti, N)
+
+    keep_status = torch.where(term, EMPTY, st.status)
+    t1 = take[:, None]
+    st2 = WalkState(*(torch.where(t1 if o.dim() == 2 else take, n, o)
+                      for n, o in zip(st_new, st)))
+    st2 = st2._replace(status=torch.where(take, ACTIVE, keep_status))
+    n_free = int(free.sum())
+    n_issued = max(0, min(n_free, g_hi - carry.next_lane))
+    next_lane = carry.next_lane + n_issued
+    # every slot was free and none was refilled: the queue is drained
+    done = n_free == free.numel() and n_issued == 0
+    return PoolCarry(
+        next_lane=next_lane, st=st2, g=torch.where(take, new_g, carry.g),
+        ok=torch.where(take, ok_new, carry.ok),
+        first_src=torch.where(take, fs_new, carry.first_src),
+        bgd_vec=torch.where(t1, bv_new, carry.bgd_vec),
+        sgd_vec=torch.where(t1, sv_new, carry.sgd_vec),
+        acc=acc), done
+
+
+def _make_draw(seed_w, st, pl):
+    """Continuation draws keyed on (per-lane step count, pair-lane id):
+    the same streams for both antithetic halves."""
+    steps = st.steps
+
+    def draw(salt, shape):
+        return fastrand.uniform(seed_w, steps, salt, pl).expand(shape)
+    return draw
+
+
+def _pool_launch(scene, settings, n_pairs, n_anti, N, pd, seeds, g_hi, cv,
+                 carry: PoolCarry, source_args, max_trips):
+    """Drain the queue up to g_hi: trips of [scatter + refill, then
+    pool_refill_every walk steps] until the queue is empty and every slot
+    EMPTY (pool.py:554-593). Returns the drained carry."""
+    greens = scene.greens()
+    seed_w, seed2 = seeds
+    K = max(1, settings.pool_refill_every)
+    for _ in range(max_trips):
+        counts["trips"] += 1
+        carry, done = _scatter_refill(scene, settings, pd, seed2, g_hi, cv,
+                                      carry, source_args, n_pairs, n_anti, N)
+        if done:
+            return carry
+        # stream ids from the real (pair, point)
+        w_, _, i_, _ = _decode(carry.g, n_anti, N)
+        pl = w_ * N + i_
+        st = carry.st
+        for _ in range(K):
+            counts["steps"] += 1
+            st = _advance(scene, greens, settings, st,
+                          _make_draw(seed_w, st, pl), source_args,
+                          step_cap=settings.pool_step_cap)
+        carry = carry._replace(st=st)
+    raise RuntimeError("walker pool failed to drain (scheduler bug?)")
+
+
+def estimate_solution_and_gradient_pool(scene: WostScene,
+                                        settings: WalkSettings, pts, key,
+                                        n_walks=None, mask_invalid=True,
+                                        source_args=()):
+    """Solution and gradient at interior points pts (N, D) on the walker
+    pool (pool.py:596-748, without adaptive allocation). `key` is a key
+    object (utils/keys.py). Returns (p (N,), grad (N, D), n_valid (N,)
+    int32)."""
+    check_supported(scene, settings)
+    t0 = time.perf_counter()
+    counts["drains"] += 1
+    n_walks_total = n_walks or settings.n_walks
+    n_anti = 2 if settings.use_gradient_antithetic_variates else 1
+    n_pairs = (max(1, n_walks_total // 2) if n_anti == 2
+               else n_walks_total)
+    N, D = pts.shape
+    dev = pts.device
+    W = n_pairs * n_anti * N
+    S = settings.pool_slots or min(8 * N, 1 << 20)
+    S = max(n_anti, min(S, W))
+    K = max(1, settings.pool_refill_every)
+
+    pd = _precompute(scene, settings, pts, key)
+    seeds = (key.fold_in(1).stream_seed(), key.fold_in(2).stream_seed())
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    carry = PoolCarry(
+        next_lane=0,
+        st=_fresh_state(zeros(S, D), thr=zeros(S),
+                        status=torch.full((S,), EMPTY, dtype=torch.int64,
+                                          device=dev)),
+        g=torch.zeros(S, dtype=torch.int64, device=dev), ok=zeros(S),
+        first_src=zeros(S), bgd_vec=zeros(S, D), sgd_vec=zeros(S, D),
+        acc=zeros(N, 3 + D))
+
+    def run(lo_pair, hi_pair, cv, carry):
+        carry = carry._replace(next_lane=lo_pair * n_anti * N)
+        g_hi = hi_pair * n_anti * N
+        # a generous guard: every queued walk at the step cap, plus slack
+        w_round = (hi_pair - lo_pair) * n_anti * N
+        max_trips = 8 + (-(-w_round // S) + 1) * (
+            -(-settings.pool_step_cap // K) + 2)
+        return _pool_launch(scene, settings, n_pairs, n_anti, N, pd, seeds,
+                            g_hi, cv, carry, source_args, max_trips)
+
+    zcv = zeros(N, 2)
+    C = min(n_pairs, max(1, settings.cv_warmup_pairs))
+    with torch.no_grad():
+        if n_pairs > C and settings.use_gradient_control_variates:
+            # warm-up pairs run with zero CV; the frozen CV is independent
+            # of the remaining pairs (unbiased, walk_on_stars.h:501-506)
+            carry = run(0, C, zcv, carry)
+            nv = torch.clamp(carry.acc[:, 2], min=1.0)
+            cv = carry.acc[:, 0:2] / nv[:, None]      # [cv_b | cv_s]
+            carry = run(C, n_pairs, cv, carry)
+        else:
+            carry = run(0, n_pairs, zcv, carry)
+
+    n_valid = carry.acc[:, 2]
+    denom = torch.clamp(n_valid, min=1.0)
+    p = carry.acc[:, 0] / denom
+    grad = carry.acc[:, 3:3 + D] / denom[:, None]
+    if mask_invalid:
+        p = torch.where(pd.degenerate, 0.0, p)
+        grad = torch.where(pd.degenerate[..., None], 0.0, grad)
+    counts["seconds"] += time.perf_counter() - t0
+    return p, grad, n_valid.to(torch.int32)

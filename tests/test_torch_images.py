@@ -1,0 +1,180 @@
+"""The image-driven scenes against the JAX package, on the CPU
+(tests/test_images_scene.py).
+
+scenes/images.py builds a mixed-boundary WostScene from a boundary OBJ
+and PFM (or, where PIL imports, PNG) images, as nmcfluid/scenes/
+images.py does: the same segment split, the same nearest-cell lookups,
+and the same walk on the same keys (the JAX-replay key), held at
+tests/test_gen.py's p tolerance; the manufactured solution at the JAX
+test's atol. The JAX test's engine-assets case needs assets outside the
+repository and skips there; it has no counterpart here.
+"""
+import builtins
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import JaxKey, to_np
+
+from nmcfluid.scenes import images as j_images
+from nmcfluid.utils.pfm import read_pfm as j_read_pfm
+from nmcfluid.wost import solver as j_solver
+from nmcfluid_torch.scenes import images as t_images
+from nmcfluid_torch.utils.keys import Key
+from nmcfluid_torch.utils.pfm import read_pfm, write_pfm
+from nmcfluid_torch.wost import solver as t_solver
+
+
+def _box_obj(path, lo=0.0, hi=2.0):
+    # ccw square loop; scene_from_images flips orientation by default
+    v = [(lo, lo), (hi, lo), (hi, hi), (lo, hi)]
+    with open(path, "w") as f:
+        for x, y in v:
+            f.write(f"v {x} {y}\n")
+        for i in range(4):
+            f.write(f"l {i + 1} {(i + 1) % 4 + 1}\n")
+
+
+def test_image_lookup_orientation_and_clamp():
+    arr = np.arange(12, dtype=np.float32).reshape(3, 4)
+    x = np.asarray([[0.1, 0.1], [0.9, 0.1], [0.1, 0.9], [5.0, -3.0]],
+                   np.float32)
+    got = t_images.image_lookup_fn(arr, np.zeros(2), 1.0)(torch.tensor(x))
+    np.testing.assert_array_equal(to_np(got), [0.0, 3.0, 8.0, 3.0])
+    want = j_images.image_lookup_fn(arr, np.zeros(2), 1.0)(jnp.asarray(x))
+    np.testing.assert_array_equal(to_np(got), np.asarray(want))
+
+
+def test_mask_splits_segments_as_jax(tmp_path):
+    obj = tmp_path / "box.obj"
+    _box_obj(obj)
+    isn = np.ones((16, 16), np.float32)
+    isn[:, 8:] = 0.0
+    ts, tm = t_images.scene_from_images(str(obj), is_neumann=isn,
+                                            device="cpu")
+    js, jm = j_images.scene_from_images(str(obj), is_neumann=isn)
+    np.testing.assert_array_equal(tm["is_neumann_seg"], jm["is_neumann_seg"])
+    assert int(tm["is_neumann_seg"].sum()) == 1
+    for a, b in zip(ts.neumann, js.neumann):
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))
+    for a, b in zip(ts.dirichlet, js.dirichlet):
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))
+    assert ts.absorption == js.absorption == 0.0
+
+
+def test_pfm_roundtrip_and_load_gray(tmp_path):
+    """The copied PFM writer and reader against the JAX package's reader,
+    and load_gray's luma of a colour PFM."""
+    arr = np.random.default_rng(0).random((9, 7)).astype(np.float32)
+    p = tmp_path / "a.pfm"
+    write_pfm(str(p), arr)
+    np.testing.assert_array_equal(read_pfm(str(p))[0], arr)
+    np.testing.assert_array_equal(j_read_pfm(str(p))[0], arr)
+    np.testing.assert_allclose(t_images.load_gray(str(p)), arr, rtol=1e-6)
+    rgb = np.random.default_rng(1).random((4, 6, 3)).astype(np.float32)
+    write_pfm(str(p), rgb)
+    np.testing.assert_allclose(t_images.load_gray(str(p)),
+                               j_images.load_gray(str(p)), rtol=1e-6)
+
+
+def test_png_without_pil_says_so(monkeypatch, tmp_path):
+    """Where PIL does not import, a PNG path raises ImportError naming
+    PIL and the way round it (the card's machine has no PIL)."""
+    real = builtins.__import__
+
+    def no_pil(name, *a, **kw):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("No module named 'PIL'")
+        return real(name, *a, **kw)
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    with pytest.raises(ImportError, match="needs PIL.*pfm"):
+        t_images.load_gray(str(tmp_path / "mask.png"))
+
+
+def test_png_matches_jax_where_pil_imports(tmp_path):
+    Image = pytest.importorskip("PIL.Image")
+    a = (np.random.default_rng(2).random((5, 8)) * 255).astype(np.uint8)
+    p = tmp_path / "m.png"
+    Image.fromarray(a).save(p)
+    np.testing.assert_allclose(t_images.load_gray(str(p)),
+                               j_images.load_gray(str(p)), rtol=1e-6)
+
+
+def _manufactured(tmp_path, R=256):
+    """tests/test_images_scene.py's mixed problem posed from images, the
+    data written as PFM files: Neumann x-walls, Dirichlet y-walls with
+    g = p*, sigma 5."""
+    L, sig = 2.0, 5.0
+    kx = np.pi / L
+    obj = tmp_path / "box.obj"
+    _box_obj(obj, 0.0, L)
+    yy, xx = np.meshgrid((np.arange(R) + 0.5) / R * L,
+                         (np.arange(R) + 0.5) / R * L, indexing="ij")
+    p_img = (np.cos(kx * xx) * np.cos(kx * yy)).astype(np.float32)
+    isn = np.zeros((R, R), np.float32)
+    isn[R // 8: -R // 8, :] = 1.0
+    paths = {}
+    for name, img in (("source", (sig + 2.0 * kx ** 2) * p_img),
+                      ("dirichlet_value", p_img), ("is_neumann", isn)):
+        paths[name] = str(tmp_path / f"{name}.pfm")
+        write_pfm(paths[name], img.astype(np.float32))
+    return str(obj), paths, sig, kx
+
+
+PTS = np.asarray([[1.0, 0.4], [0.6, 1.5]], np.float32)
+
+
+def test_images_walk_matches_jax(tmp_path):
+    """The scene built from the PFM files in both packages, walked by
+    estimate_solution on the same key (512 walks): equal valid counts, p
+    at tests/test_gen.py's tolerance."""
+    obj, paths, sig, _ = _manufactured(tmp_path)
+    ts, _ = t_images.scene_from_images(obj, absorption=sig, device="cpu",
+                                       **paths)
+    js, _ = j_images.scene_from_images(obj, absorption=sig, **paths)
+    key = jax.random.PRNGKey(0)
+    pj, nj, _ = j_solver.estimate_solution(
+        js, j_solver.WalkSettings(walk_step_cap=128, ignore_dirichlet=False),
+        jnp.asarray(PTS), key, 512)
+    pt, nt, _ = t_solver.estimate_solution(
+        ts, t_solver.WalkSettings(walk_step_cap=128, ignore_dirichlet=False),
+        torch.from_numpy(PTS), JaxKey(key), 512)
+    np.testing.assert_array_equal(to_np(nt), np.asarray(nj))
+    np.testing.assert_allclose(to_np(pt), np.asarray(pj), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_images_mixed_bc_solution(tmp_path):
+    """The port alone with its own key, the JAX test's 2000 walks and
+    atol 0.07 (the image's nearest-cell bias included)."""
+    obj, paths, sig, kx = _manufactured(tmp_path)
+    scene, meta = t_images.scene_from_images(obj, absorption=sig,
+                                             device="cpu", **paths)
+    assert scene.dirichlet is not None and scene.dirichlet_fn is not None
+    p, n, _ = t_solver.estimate_solution(
+        scene, t_solver.WalkSettings(walk_step_cap=128,
+                                     ignore_dirichlet=False),
+        torch.from_numpy(PTS), Key(0), 2000)
+    want = np.cos(kx * PTS[:, 0]) * np.cos(kx * PTS[:, 1])
+    np.testing.assert_allclose(to_np(p), want, atol=0.07)
+    assert np.all(to_np(n) > 1200)
+
+
+def test_default_sigma_is_harmonic(tmp_path):
+    """scene_from_images' default sigma 0 walks with the harmonic Green's
+    function; a boundary without a Neumann segment is refused as in JAX;
+    without a card the default device raises (the CPU only when asked)."""
+    obj, paths, _, _ = _manufactured(tmp_path, R=32)
+    scene, _ = t_images.scene_from_images(obj, device="cpu", **paths)
+    from nmcfluid_torch.ops.greens2d import Harmonic2D
+    assert scene.greens() is Harmonic2D
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            t_images.scene_from_images(obj, **paths)
+    with pytest.raises(ValueError, match="Neumann"):
+        t_images.scene_from_images(obj, is_neumann=np.zeros((4, 4),
+                                                            np.float32),
+                                   device="cpu")

@@ -25,6 +25,8 @@ import torch
 from _torch_parity import (JaxKey, capture_frames, chained_runs,
                            ckpt_leaves, cli_pair, params_np,
                            replay_key_seam, to_np, tree_files)
+from _torch_parity import spread as _spread
+from _torch_parity import walk_close as _walk_close
 
 import nmcfluid.replay as jreplay
 import nmcfluid.utils.vis as jvis
@@ -147,30 +149,6 @@ def test_fluid_points_replay_jax_keys(rounds):
     jp2, jv2 = j_sampling.training_points(k, 5000, js)
     np.testing.assert_allclose(to_np(tp2), np.asarray(jp2), rtol=0, atol=ulp)
     np.testing.assert_array_equal(to_np(tv2), np.asarray(jv2))
-
-
-def _walk_close(got, want, spread, rtol, atol, share=0.9):
-    """At least `share` of the points at (rtol, atol); the others within
-    four times the walk's own spread (the RMS difference of two keys'
-    estimates over sqrt 2, per component). A walker on a wall decides
-    whether the wall's own end vertices are silhouettes by the sign of
-    d1 d2, which is a rounding error there; XLA contracts some products
-    into FMAs and the port does not, so a position that differs in its
-    last ulp can set another star radius and send that walk elsewhere.
-    On the soup a few walks a point take another path in either package;
-    the analytic boundaries have no such test, and tests/test_torch_walk.py
-    holds their walks at the gen tolerance everywhere."""
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    close = np.abs(got - want) <= atol + rtol * np.abs(want)
-    close = close.reshape(close.shape[0], -1).all(-1)
-    assert close.mean() >= share, close.mean()
-    far = np.abs(got - want).reshape(close.shape[0], -1)[~close]
-    assert np.all(far <= 4.0 * spread), (far.max(), spread)
-
-
-def _spread(a, b):
-    d = (np.asarray(a, np.float64) - np.asarray(b, np.float64))
-    return float(np.sqrt(np.mean(d ** 2)) / np.sqrt(2.0))
 
 
 def test_gen_walk_on_the_soup_matches_jax_gen():

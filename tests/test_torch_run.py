@@ -109,21 +109,56 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["taylorgreen", "--projection", "bvc"], "projection"),
+    pytest.param(["taylorgreen", "--projection", "bvc", "--walk_algo",
+                  "lockstep"], "lockstep", id="argv0-projection"),
     (["taylorgreen", "--mesh", "2"], "mesh"),
     (["taylorgreen", "--wost_source", "net"], "wost_source"),
-    (["taylorgreen", "--walk_algo", "pool"], "pool"),
+    pytest.param(["taylorgreen", "--walk_algo", "pool", "--adaptive_walks",
+                  "1"], "adaptive_walks", id="argv3-pool"),
     (["taylorgreen", "--fit_ensemble", "2"], "fit_ensemble"),
     (["taylorgreen", "--walk_algo", "lockstep"], "lockstep"),
-    (["smoke", "--absorption", "0"], "Yukawa"),
+    pytest.param(["smoke", "--adaptive_walks", "1"], "Do not port",
+                 id="argv6-Yukawa"),
 ])
 def test_unported_raise_before_any_file(tmp_path, argv, name):
     """(f) Each unported flag raises NotImplementedError naming
-    it, and leaves no experiment directory."""
+    it, and leaves no experiment directory. The lockstep gradient launch
+    and adaptive allocation are in ROADMAP's "Do not port" list, under
+    every projection that walks (the cases with the ids of the flags
+    they replaced: --projection bvc, --walk_algo pool and --absorption 0
+    are ported)."""
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match=name):
         trun.main(argv + ["--out", str(out), "--device", "cpu"])
     assert not out.exists()
+
+
+@pytest.mark.parametrize("extra", [["--projection", "bvc"],
+                                   ["--walk_algo", "pool"],
+                                   ["--projection", "bvc", "--walk_algo",
+                                    "pool"],
+                                   ["--absorption", "0", "--n_walks", "8"]])
+def test_walk_flags_run(tmp_path, extra):
+    """--projection bvc, --walk_algo pool (under wost and bvc) and
+    --absorption 0 (the harmonic walk) run the port's CLI at CLI_TINY's
+    sizes: two checkpoints, finite, and the config names the flags. At
+    sigma 0 in the closed box no walk ends (the harmonic throughput never
+    meets the roulette) and every one is dropped at the step cap, as in
+    the JAX package; 8 walks keep that to one generation."""
+    out = tmp_path / "out"
+    trun.main(["taylorgreen"] + CLI_TINY + extra
+              + ["--out", str(out), "--device", "cpu"])
+    exp = out / "taylorgreen"
+    steps = sorted(p.name for p in (exp / "model").iterdir())
+    assert steps == ["ckpt_step_t000.npz", "ckpt_step_t001.npz"]
+    with np.load(exp / "model" / steps[-1]) as z:
+        assert all(np.all(np.isfinite(z[k])) for k in z.files
+                   if k.startswith("leaf_"))
+    cfg = json.loads((exp / "config.json").read_text())
+    for flag, value in zip(extra[0::2], extra[1::2]):
+        got = cfg[flag[2:]]
+        assert str(got) == value or (not isinstance(got, str)
+                                     and got == float(value)), (flag, got)
 
 
 @pytest.mark.parametrize("projection", ["spectral", "bem"])

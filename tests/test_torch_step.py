@@ -91,21 +91,27 @@ def test_final_state(runs):
 
 
 @pytest.mark.parametrize("over", [dict(fit_ensemble=2),
-                                  dict(projection="bvc"),
+                                  dict(projection="bvc",
+                                       walk_settings=WalkSettings(
+                                           fast_rng=False)),
                                   dict(mesh=2),
                                   dict(walk_settings=WalkSettings(
-                                      algo="pool")),
+                                      algo="pool", adaptive_walks=1.0)),
                                   dict(walk_settings=WalkSettings(
-                                      steps_before_tikhonov=1)),
+                                      algo="lockstep")),
                                   dict(walk_settings=WalkSettings(
                                       fast_rng=False)),
                                   dict(wost_source="net")])
 def test_unported_flags_raise(over):
-    """Flags not ported yet raise, naming themselves (adv_ref,
+    """Flags not ported raise, naming themselves (adv_ref,
     fit_mode="xla", grad_clip and param_ema are ported: see
     tests/test_torch_fit_single.py and tests/test_torch_run.py; the
-    spectral and bem projections: tests/test_torch_spectral.py and
-    tests/test_torch_bem.py)."""
+    spectral, bem and bvc projections, the pool and the mid-walk
+    Tikhonov: tests/test_torch_spectral.py, test_torch_bem.py,
+    test_torch_bvc.py and test_torch_walk_family.py). The lockstep
+    gradient launch (algo "lockstep", and fast_rng=False, which routes
+    there) and adaptive allocation are in ROADMAP's "Do not port"
+    list."""
     over = dict(over)
     scene = over.pop("scene", "taylorgreen")
     with pytest.raises(NotImplementedError,

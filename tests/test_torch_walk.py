@@ -153,9 +153,12 @@ def test_gen_solves_manufactured_problem():
 
 
 def test_gen_unported_settings_raise():
+    """The settings of ROADMAP's "Do not port" list raise (the others are
+    held in tests/test_torch_walk_family.py)."""
     scene = _manufactured("torch")
-    for over in (dict(algo="pool"), dict(steps_before_tikhonov=2),
-                 dict(solve_double_sided=True), dict(adaptive_walks=1.0)):
+    for over in (dict(algo="lockstep"), dict(fast_rng=False),
+                 dict(adaptive_walks=1.0),
+                 dict(algo="pool", adaptive_walks=1.0)):
         with pytest.raises(NotImplementedError):
             t_gen(scene, TSettings(**over), torch.from_numpy(PTS), Key(0), 8)
 
