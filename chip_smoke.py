@@ -35,8 +35,10 @@
    the small input in 3D), then get_scene, NeuralFluid(device="cuda"),
    init_state, add_source and the steps at the shipped width: karman (2 x
    128 SIREN, the channel with its circle, the ramp width halved after
-   add_source as the JAX CLI does, one step, a 1000 x 399 divergence
-   grid, 512^2 pressure points), jpipe (2 x 128, the walk over its
+   add_source as the JAX CLI does; one step whose walk is cut in depth to
+   one 65,536-point pressure chunk, 256^2 points where the shipped step
+   walks 512^2 in four chunks at ~244 s, to keep the phases under 900 s),
+   jpipe (2 x 128, the walk over its
    segment soup, the ramp kept, one step, a 1000^2 grid; its fit check
    needs pool points with an off-diagonal A and holds the float64 twin at
    JPIPE_ATOL64, its small-input walk nine points in ten at the gen
@@ -74,13 +76,28 @@
    path's add_source state: one fit-kernel launch a fit, the cache walk
    and the splat timed apart by CUDA events (bvc_walk, bvc_splat), peak
    memory and the TG error bound.
+10. The soups-and-sources phase (soups_phase): (a) every query of
+   geometry/queries3d.py on the card against the CPU, on the cube and the
+   reflex soup; (b) tests/test_mixed3d.py's mixed problem and
+   double-sided barrier on triangle soups under estimate_solution and the
+   gen and pool gradients, at the JAX tests' atol; (c) one full-width
+   smoke step walked on the 12-triangle cube soup from smoke's add_source
+   state, held point by point to the smoke path's step on the analytic
+   cube (the same walk inputs), with its P, energy ratio and walk
+   seconds; (d) one full-width Taylor-Green step under wost_source "net"
+   from TG's add_source state, its stage times and the TG error bound,
+   after the net source itself and a small net-source walk held card
+   against CPU; (e) a ["cuda:0", "cuda:0"] points mesh against the
+   meshless solve on 65,536 TG points in two 32,768-point chunks, one a
+   device, bit for bit.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
-vortex_collide, the CLI's two runs, the nine projection paths and
-Taylor-Green under bvc),
+vortex_collide, the CLI's two runs, the nine projection paths,
+Taylor-Green under bvc, smoke on the cube soup and Taylor-Green under the
+net source),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -375,8 +392,9 @@ def _fit_entry(path, fluid, launches, per_frame, err, kernel_ms, plain_ms):
     print(f"{path} fit kernel: {kernel_ms:.5f} ms/iter, "
           f"{bound_ms / kernel_ms:.1%} of the f32 bound ({bound_ms:.5f} ms), "
           f"{bound_tc_ms / kernel_ms:.1%} of the 3xTF32 bound "
-          f"({bound_tc_ms:.5f} ms); {per_frame} launches a frame",
-          flush=True)
+          f"({bound_tc_ms:.5f} ms); "
+          + (f"{per_frame} launches a frame" if per_frame is not None
+             else "no step on this path"), flush=True)
     return {
         "name": "fit_persistent (fused_adam_fit)", "route": "cuda",
         "source": "nmcfluid_torch/csrc/fitkernel.cu",
@@ -576,14 +594,25 @@ def tg_stage_check(fluid):
 # of the float64 twin and the kernel up to 5.5e-6, while faulty fits read
 # 1.8e-5 and more (`python -m nmcfluid_torch.sim.fitprobe --scene NAME
 # --faults`, PERF.md).
+# The last field is the pressure cloud's side (None: the scene's): karman's
+# shipped step walks 512^2 points in four 65,536-point chunks, ~244 s of
+# walk tail, so its step here walks one such chunk (256^2) to keep the
+# phases under 900 s.
 PATHS = (
-    ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
-    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
-    ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
-    ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0)),
-    ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
-    ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0)),
+    ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
+    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
+    ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
+    ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
+    ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
+    ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
 )
+
+
+# the paths whose last step the soups phase walks again on a triangle
+# soup, and what path_phase keeps of that step: its projection (pts, p,
+# grad p, divergence grid), P, energy ratio and walk seconds
+SOUP_PATHS = ("smoke",)
+PATH_RUNS = {}
 
 
 def free_region(fluid, grid, n_keys=64):
@@ -602,7 +631,8 @@ def free_region(fluid, grid, n_keys=64):
     return free, src
 
 
-def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
+def path_phase(name, n_steps, atol, plan_mode, err_bound, band,
+               wost_resolution=None):
     """The fit kernel and the small input at a scene's shapes, then its
     path at full width: add_source, the ramp width the scene steps with
     (halved in the 2D karman family as the JAX CLI does, nmcfluid/run.py:
@@ -613,8 +643,10 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
     and on the scene's vel_vis grid, over the free region (free_region:
     where the hard BCs pin nothing), the source fit's relative squared
     error against the mean source (< err_bound) and 0.5 mean|u|^2 after
-    the steps within `band` x the mean source's. Returns the fit kernel's
-    report entry and the state after add_source."""
+    the steps within `band` x the mean source's. wost_resolution, where
+    given, sets the pressure cloud's side in place of the scene's.
+    Returns the fit kernel's report entry and the state after
+    add_source."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -622,7 +654,8 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
     from nmcfluid_torch.utils.keys import Key
 
     scene = get_scene(name)
-    fluid = tfluid.NeuralFluid(scene, device="cuda")
+    fluid = tfluid.NeuralFluid(scene, device="cuda",
+                               wost_resolution=wost_resolution)
     plan = _plan(fk, fluid)
     if (plan.recompute, plan.n_wbuf, plan.tiles_per_block) != plan_mode:
         raise AssertionError(f"{name} fit plan {plan}")
@@ -689,20 +722,26 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band):
         raise AssertionError(f"{name}: expected {1 + 2 * n_steps} fit-kernel"
                              f" launches (1 source + 2 a step), got "
                              f"{fk.launches} ({per_frame} in the steps)")
-    _check_finite(state, fluid._last_projection)
-    _, p, _, div = fluid._last_projection
-    want = (grid_resolutions(scene.scene_size, fluid.div_resolution),
-            (fluid.n_pressure,))
-    if (tuple(div.shape), tuple(p.shape)) != want:
-        raise AssertionError(f"{name} shapes: div {tuple(div.shape)}, p "
-                             f"{tuple(p.shape)}, expected {want}")
+    if n_steps:
+        _check_finite(state, fluid._last_projection)
+        _, p, _, div = fluid._last_projection
+        want = (grid_resolutions(scene.scene_size, fluid.div_resolution),
+                (fluid.n_pressure,))
+        if (tuple(div.shape), tuple(p.shape)) != want:
+            raise AssertionError(f"{name} shapes: div {tuple(div.shape)}, "
+                                 f"p {tuple(p.shape)}, expected {want}")
     if not band[0] <= ratio <= band[1]:
         raise AssertionError(f"{name} 0.5 mean|u|^2 after the steps is "
                              f"{ratio} x the source's")
     print(f"{name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    entry = _fit_entry(name, fluid, fk.launches, per_frame[0], err,
-                       kernel_ms, plain_ms)
+    if name in SOUP_PATHS:
+        PATH_RUNS[name] = dict(projection=fluid._last_projection,
+                               P=float(state.P), ratio=ratio,
+                               walk_s=fluid.stage_times["wost_solve"])
+    entry = _fit_entry(name, fluid, fk.launches,
+                       per_frame[0] if per_frame else None, err, kernel_ms,
+                       plain_ms)
     del fluid, state, grid, free, src, u
     torch.cuda.empty_cache()
     return entry, source
@@ -1381,6 +1420,425 @@ def walks_phase(tg_source, entries):
     return out
 
 
+# ------------------------------------------------------ soups and sources
+
+# tests/test_geometry.py:119-138's reflex corner: the two walls of an
+# L-shaped prism's inner corner
+REFLEX_VERTS = [[0, 0, 0], [2, 0, 0], [2, 1, 0], [1, 1, 0], [1, 2, 0],
+                [0, 2, 0], [0, 0, 1], [2, 0, 1], [2, 1, 1], [1, 1, 1],
+                [1, 2, 1], [0, 2, 1]]
+REFLEX_FACES = [[3, 4, 10], [3, 10, 9], [3, 9, 8], [3, 8, 2]]
+
+
+def _query_checks():
+    """(a): every query of geometry/queries3d.py on the card against the
+    CPU, on the unit cube and the reflex soup, at 4096 random points,
+    directions, caps and second points: distances, points, normals and
+    radii at rtol 1e-6 / atol 1e-6, flags equal. Returns seconds."""
+    from nmcfluid_torch.geometry import box_tris, build_triangles
+    from nmcfluid_torch.geometry import queries3d as q
+    t0 = time.perf_counter()
+    soups = {"cube": build_triangles(*box_tris((0.0,) * 3, (1.0,) * 3)),
+             "reflex": build_triangles(np.asarray(REFLEX_VERTS, float),
+                                       np.asarray(REFLEX_FACES))}
+    rng = np.random.default_rng(0)
+    for name, soup in soups.items():
+        lo, hi = soup.bmin.numpy() - 0.5, soup.bmax.numpy() + 0.5
+        d = rng.normal(size=(4096, 3))
+        args = [torch.from_numpy(a.astype(np.float32)) for a in (
+            rng.uniform(lo, hi, (4096, 3)),
+            d / np.linalg.norm(d, axis=1, keepdims=True),
+            rng.uniform(0.05, 3.0, 4096), rng.uniform(lo, hi, (4096, 3)))]
+        x, dn, cap, y = args
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sp = soup.to(dev)
+            xd, dd, cd, yd = (a.to(dev) for a in args)
+            out[dev] = (list(q.closest_point(sp, xd))
+                        + list(q.ray_intersect(sp, xd, dd, cd))
+                        + [q.has_line_of_sight(sp, xd, yd),
+                           q.star_radius(sp, xd, 1e-3, cd),
+                           q.dist_to_far_bbox_corner(sp, xd),
+                           q.outside_bbox(sp, xd)])
+        for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+            a = a.cpu()
+            if a.dtype == torch.bool:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} query {i}: "
+                                         f"{int((a != b).sum())} flags differ")
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        hits = float(out["cpu"][4].float().mean())
+        sil = float((out["cpu"][9] < cap).float().mean())
+        print(f"3D queries on the {name} soup ({soup.va.shape[0]} triangle "
+              f"slots, {soup.ea.shape[0]} silhouette-edge slots), card "
+              f"against CPU at 4096 points: equal; {hits:.3f} of the rays "
+              f"hit, {sil:.3f} of the star radii stop at a silhouette",
+              flush=True)
+    return time.perf_counter() - t0
+
+
+# tests/test_mixed3d.py's problems in the box [0, 2]^3: the mixed
+# screened problem (Neumann x/y walls, Dirichlet z walls, sigma 5) and the
+# double-sided barrier plane x = 0.8 (sigma 10)
+MIXED3D_CASES = {
+    # solution points and atol, gradient points and (p, grad p) atol
+    "mixed": ([[1.0, 1.0, 0.4], [0.5, 0.7, 1.6], [1.5, 1.4, 1.0]], 0.06,
+              [[1.0, 1.0, 0.4], [0.5, 0.7, 1.6], [1.5, 1.4, 1.0]], 0.07,
+              0.17),
+    "barrier": ([[0.3, 1.0, 1.0], [0.55, 0.5, 1.3], [1.1, 1.0, 1.0],
+                 [1.6, 1.4, 0.6]], 0.1, [[0.4, 1.0, 1.0], [1.3, 0.9, 1.1]],
+                0.1, 0.3),
+}
+
+
+def _mixed3d_scenes(device):
+    """{name: (scene, p*, grad p*)} of MIXED3D_CASES on `device`."""
+    import math
+    from nmcfluid_torch.geometry import box_tris, build_triangles
+    from nmcfluid_torch.wost.solver import WostScene
+    L, kx = WALK_L, math.pi / WALK_L
+    kl, kr = math.pi / BAR_M, math.pi / (L - BAR_M)
+    v, f = box_tris((0.0,) * 3, (L,) * 3)
+    v = np.concatenate([v, [[BAR_M, 0.0, 0.0], [BAR_M, L, 0.0],
+                            [BAR_M, L, L], [BAR_M, 0.0, L]]])
+    walls = {2: f[0:4], 1: f[4:8], 0: f[8:12],
+             "bar": np.asarray([[8, 9, 10], [8, 10, 11]])}
+
+    def soup(*keys):
+        return build_triangles(v, np.concatenate(
+            [walls[k] for k in keys])).to(device)
+
+    def p_mixed(x):
+        return torch.cos(kx * x[..., 0]) * torch.cos(kx * x[..., 2])
+
+    def g_mixed(x):
+        return torch.stack([-kx * torch.sin(kx * x[..., 0])
+                            * torch.cos(kx * x[..., 2]),
+                            torch.zeros_like(x[..., 0]),
+                            -kx * torch.cos(kx * x[..., 0])
+                            * torch.sin(kx * x[..., 2])], -1)
+
+    def p_bar(x):
+        xx = x[..., 0]
+        return torch.where(xx < BAR_M, BAR_CL * torch.cos(kl * xx),
+                           BAR_CR * torch.cos(kr * (L - xx)))
+
+    def g_bar(x):
+        xx = x[..., 0]
+        gx = torch.where(xx < BAR_M, -kl * BAR_CL * torch.sin(kl * xx),
+                         kr * BAR_CR * torch.sin(kr * (L - xx)))
+        return torch.stack([gx, torch.zeros_like(gx), torch.zeros_like(gx)],
+                           -1)
+
+    def src_bar(x):
+        xx = x[..., 0]
+        return torch.where(
+            xx < BAR_M, (BAR_SIG + kl ** 2) * BAR_CL * torch.cos(kl * xx),
+            (BAR_SIG + kr ** 2) * BAR_CR * torch.cos(kr * (L - xx)))
+
+    mixed = WostScene(
+        dim=3, neumann=soup(0, 1), absorption=WALK_SIG_D,
+        source_fn=lambda x: (WALK_SIG_D + 2 * kx ** 2) * p_mixed(x),
+        dirichlet=soup(2), dirichlet_fn=p_mixed)
+    barrier = WostScene(
+        dim=3, neumann=soup(1, 2, "bar"), source_fn=src_bar,
+        absorption=BAR_SIG, dirichlet=soup(0), dirichlet_fn=p_bar)
+    return {"mixed": (mixed, p_mixed, g_mixed),
+            "barrier": (barrier, p_bar, g_bar)}
+
+
+def _mixed3d_checks(Key):
+    """(b): each 3D problem on the card under estimate_solution (3000
+    walks) and the gen and pool gradients (3000 walks; 1024 pairs a
+    generation, 4096 pool slots and 256-step caps, as the 2D checks),
+    held to the manufactured solution at the JAX tests' atol. Returns
+    seconds by check."""
+    import dataclasses
+    from nmcfluid_torch.wost.solver import (WalkSettings, estimate_solution,
+                                            estimate_solution_and_gradient)
+    secs = {}
+    scenes = _mixed3d_scenes("cuda")
+    for name, (pts, atol_s, pts_g, atol_p, atol_g) in MIXED3D_CASES.items():
+        scene, p_star, g_star = scenes[name]
+        base = WalkSettings(walk_step_cap=256, ignore_dirichlet=False,
+                            solve_double_sided=name == "barrier",
+                            gen_group_pairs=1024, pool_slots=4096,
+                            gen_step_cap=256, pool_step_cap=256)
+        x = torch.tensor(pts, device="cuda")
+        t0 = time.perf_counter()
+        p, n, _ = estimate_solution(scene, base, x, Key(0), 3000)
+        _sync()
+        secs[f"{name} solution"] = time.perf_counter() - t0
+        torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_s)
+        if not bool((n > 2000).all()):
+            raise AssertionError(f"3D {name}: valid walks {n.tolist()}")
+        x = torch.tensor(pts_g, device="cuda")
+        for algo in ("gen", "pool"):
+            t0 = time.perf_counter()
+            p, g, n = estimate_solution_and_gradient(
+                scene, dataclasses.replace(base, algo=algo), x, Key(2), 3000)
+            _sync()
+            secs[f"{name} {algo}"] = time.perf_counter() - t0
+            torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_p)
+            torch.testing.assert_close(g, g_star(x), rtol=0, atol=atol_g)
+            if not bool((n > 2000).all()):
+                raise AssertionError(f"3D {name} {algo}: valid walks "
+                                     f"{n.tolist()}")
+    print("3D boundary data on triangle soups, on the card: the mixed "
+          "problem and the double-sided barrier at the JAX tests' atol "
+          "under estimate_solution, gen and pool; seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()}),
+          flush=True)
+    return secs
+
+
+def _soup_smoke_step(smoke_source, entry, Key):
+    """(c): one full-width smoke step walked on the 12-triangle cube soup
+    (specs._cube_boundary_soup) from smoke's add_source state. The
+    advection fit and the divergence grid are the smoke path's own (the
+    same state, keys and bit-identical fit kernel), so the walk's inputs
+    are too, and its points the same: p and grad p held to the analytic
+    cube's step nine points in ten at the gen tolerance and the rest
+    within 4 x the walk's spread (a second key on 4096 points), P within
+    4 standard errors of the pointwise differences, the energy ratio in
+    smoke's band and within 5% of the analytic step's; one fit-kernel
+    launch a fit. Returns (the fit kernel's entry, wall s, walk s)."""
+    import dataclasses
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.scenes.specs import _cube_boundary_soup
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.sim.sampling import uniform_grid
+    from nmcfluid_torch.wost.solver import estimate_solution_and_gradient
+    box = PATH_RUNS["smoke"]
+    scene = dataclasses.replace(get_scene("smoke"),
+                                _boundary_builder=_cube_boundary_soup)
+    fluid = tfluid.NeuralFluid(scene, device="cuda")
+    if type(fluid.boundary).__name__ != "Tri3D":
+        raise AssertionError("the soup path does not walk a Tri3D")
+    fluid.profile, fluid.stage_times = True, {}
+    _walk_report(0.0)
+    fk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fluid.step(smoke_source)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = fk.launches
+    stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+    walk = _walk_report(stages["wost_solve"])
+    if launches != 2:
+        raise AssertionError(f"smoke soup: {launches} fit-kernel launches "
+                             "in the step, expected 2")
+    _check_finite(state, fluid._last_projection)
+    pts, p, g, div = fluid._last_projection
+    pts_b, p_b, g_b, div_b = box["projection"]
+    if not (torch.equal(pts, pts_b) and torch.equal(div, div_b)):
+        raise AssertionError("smoke soup: the walk's inputs are not the "
+                             "smoke path's")
+    sub = pts[:4096]
+    p2, g2, _ = estimate_solution_and_gradient(
+        fluid._wost_scene, fluid.walk_settings, sub, Key(77),
+        source_args=(div,))
+    # the step's masks: p near the boundary; grad p there and at the
+    # points the step zeroed (outside the domain, invalid draws)
+    p2, g2 = tfluid._mask_pressure(fluid, sub, torch.ones_like(
+        sub[:, 0], dtype=torch.bool), p2, g2)
+    g2 = torch.where((g[:4096] == 0).all(-1, keepdim=True), 0.0, g2)
+    spread_p = float((p[:4096] - p2).pow(2).mean().sqrt()) / 2 ** 0.5
+    spread_g = float((g[:4096] - g2).pow(2).mean().sqrt()) / 2 ** 0.5
+    _walk_close("smoke soup p", p.cpu(), p_b.cpu(), spread_p, 2e-4, 2e-5,
+                0.9)
+    _walk_close("smoke soup grad p", g.cpu(), g_b.cpu(), spread_g, 2e-3,
+                2e-4, 0.9)
+    dp = p - p_b
+    se = float(dp.pow(2).mean().sqrt()) / p.shape[0] ** 0.5
+    dP = float(state.P) - box["P"]
+    res = scene.vel_vis_resolution
+    grid = uniform_grid(scene.scene_size, res, device="cuda")
+    free, src = free_region(fluid, grid)
+    u = tfluid._velocity_grid(fluid, state.params, state.eps,
+                              state.timestep, res, False)
+    ratio = (float(torch.mean(torch.sum(u[free] ** 2, -1)))
+             / float(torch.mean(torch.sum(src[free] ** 2, -1))))
+    same = float(((dp.abs() <= 2e-5 + 2e-4 * p_b.abs())).float().mean())
+    print(f"smoke step on the cube soup: {wall:.2f} s, stages "
+          f"{json.dumps(stages)}, fit-kernel launches {launches}; {walk}; "
+          f"walk {stages['wost_solve']} s against the analytic cube's "
+          f"{box['walk_s']:.3f} s; P "
+          f"{float(state.P):.6e} against {box['P']:.6e} (difference "
+          f"{dP:.3e}, 4 standard errors {4 * se:.3e}); {same:.4f} of the "
+          f"points' p at the gen tolerance; 0.5 mean|u|^2 {ratio:.4f} x the "
+          f"source's against {box['ratio']:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not abs(dP) <= 4 * se + 1e-7:
+        raise AssertionError(f"smoke soup: P differs by {dP}, 4 standard "
+                             f"errors {4 * se}")
+    if not (0.25 <= ratio <= 2.0 and abs(ratio - box["ratio"])
+            <= 0.05 * box["ratio"]):
+        raise AssertionError(f"smoke soup: energy ratio {ratio} against "
+                             f"{box['ratio']}")
+    out = dict(entry, path="smoke soup", launches=launches,
+               launches_per_frame=launches)
+    del fluid, state
+    torch.cuda.empty_cache()
+    return out, wall, stages["wost_solve"]
+
+
+def _net_source_small(tg_source, Key):
+    """(d), first: the net source (-div u of the network by forward mode,
+    fluid._wost_scene_net.source_fn) at 4,096 Taylor-Green walk points on
+    the card against the CPU from TG's add_source weights, at the
+    divergence grid's tolerance (rtol 1e-4, atol 5e-5); then one small
+    net-source WoSt chunk (256 points x 48 walks) on the card against the
+    CPU on the same key, at the gen tolerance (the walks' streams are the
+    same; the source's rounding alone differs). Returns the largest
+    differences (source, p, grad p)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.sim.sampling import fluid_points
+    scene = get_scene("taylorgreen")
+    kw = dict(sample_resolution=16, wost_resolution=16, div_resolution=64,
+              n_walks=48, max_n_iters=50, fit_pool=8, wost_source="net")
+    gpu = tfluid.NeuralFluid(scene, device="cuda", **kw)
+    cpu = tfluid.NeuralFluid(scene, device="cpu", **kw)
+    params = tg_source.params
+    params_cpu = [(W.cpu(), b.cpu()) for W, b in params]
+    eps, t = tg_source.eps, tg_source.timestep
+    y, _ = fluid_points(Key(41), 4096, scene, device="cpu")
+    src_c = cpu._wost_scene_net.source_fn(y, params_cpu, eps, t)
+    src_g = gpu._wost_scene_net.source_fn(y.cuda(), params, eps, t)
+    torch.testing.assert_close(src_g.cpu(), src_c, rtol=1e-4, atol=5e-5)
+    _, _, p_g, g_g = tfluid._pressure_solve(
+        gpu, (params, eps, t), Key(13), gpu._wost_scene_net)
+    _, _, p_c, g_c = tfluid._pressure_solve(
+        cpu, (params_cpu, eps, t), Key(13), cpu._wost_scene_net)
+    _walk_close("net source p", p_g.cpu(), p_c, 0.0, 2e-4, 2e-5, 1.0)
+    _walk_close("net source grad p", g_g.cpu(), g_c, 0.0, 2e-3, 2e-4, 1.0)
+    diffs = [float((a.cpu() - b).abs().max())
+             for a, b in ((src_g, src_c), (p_g, p_c), (g_g, g_c))]
+    print(f"net source on the card against the CPU: -div u at "
+          f"{y.shape[0]} TG points max |diff| {diffs[0]:.3e} (|-div u| up "
+          f"to {float(src_c.abs().max()):.3e}; rtol 1e-4, atol 5e-5); a "
+          f"{p_c.shape[0]}-point net-source chunk p {diffs[1]:.3e}, grad p "
+          f"{diffs[2]:.3e} (gen tolerance)", flush=True)
+    return diffs
+
+
+def _net_source_step(tg_source, entry, tg_step_err):
+    """(d): one full-width Taylor-Green step under wost_source="net" from
+    TG's add_source state: one fit-kernel launch a fit, the stage times,
+    the TG velocity error under 5e-3 (the projections phase's bound),
+    printed beside the grid source's step from the same state. Returns
+    (the fit kernel's entry, wall s, walk s)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.transport.density import (raw_velocity_grid,
+                                                  tg_velocity_error)
+    fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda",
+                               wost_source="net")
+    fluid.profile, fluid.stage_times = True, {}
+    _walk_report(0.0)
+    fk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fluid.step(tg_source)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = fk.launches
+    stages = {k: round(v, 3) for k, v in fluid.stage_times.items()}
+    if launches != 2:
+        raise AssertionError(f"taylorgreen net: {launches} fit-kernel "
+                             "launches in the step, expected 2")
+    _check_finite(state, fluid._last_projection)
+    err_tg = tg_velocity_error(raw_velocity_grid(fluid, state.params, 1000))
+    print(f"taylorgreen step under wost_source net: {wall:.2f} s, stages "
+          f"{json.dumps(stages)}, fit-kernel launches {launches}, P "
+          f"{float(state.P):.6e}, TG velocity error {err_tg:.6e} (the grid "
+          f"source's step from the same state {tg_step_err:.6e}); "
+          f"{_walk_report(stages['wost_solve'])}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not err_tg < 5e-3:
+        raise AssertionError(f"taylorgreen net: TG velocity error {err_tg}")
+    out = dict(entry, path="taylorgreen net", launches=launches,
+               launches_per_frame=launches)
+    del fluid, state
+    torch.cuda.empty_cache()
+    return out, wall, stages["wost_solve"]
+
+
+def _mesh_check(tg_source, Key):
+    """(e): the wost pressure solve of 65,536 Taylor-Green points (256^2,
+    500 walks) meshless and over a ["cuda:0", "cuda:0"] points mesh, on
+    the same key and divergence grid. The mesh walks whole chunks, at
+    least one a device, so it halves the one 65,536-point chunk; the
+    meshless fluid walks the same two 32,768-point chunks in turn, the
+    mesh one a device in a host thread each (parallel/mesh.py): points,
+    flags, p and grad p equal bit for bit. Returns (meshless s, mesh
+    s)."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    scene = get_scene("taylorgreen")
+    fl0 = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=256)
+    fl2 = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=256,
+                             mesh=["cuda:0"] * 2)
+    if (fl2.n_pressure, fl2.wost_chunk) != (65536, 32768):
+        raise AssertionError(f"mesh: {fl2.n_pressure} points in chunks of "
+                             f"{fl2.wost_chunk}")
+    fl0.wost_chunk = fl2.wost_chunk
+    div = tfluid._divergence_grid(fl0, tg_source.params, tg_source.eps, 0)
+    outs, secs = [], []
+    for fl in (fl0, fl2):
+        _sync()
+        t0 = time.perf_counter()
+        outs.append(tfluid._pressure_solve_wost(fl, (div,), Key(31),
+                                                fl._wost_scene))
+        _sync()
+        secs.append(time.perf_counter() - t0)
+    for a, b, what in zip(*outs, ("points", "flags", "p", "grad p")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"mesh: {what} differ from the meshless "
+                                 f"solve at {int((a != b).sum())} entries")
+    print(f"points mesh [cuda:0, cuda:0] against the meshless solve, "
+          f"{outs[0][0].shape[0]} TG points in two 32768-point chunks: "
+          f"equal bit for bit; meshless {secs[0]:.3f} s, mesh (one chunk "
+          f"a device) {secs[1]:.3f} s", flush=True)
+    del fl0, fl2, div, outs
+    torch.cuda.empty_cache()
+    return secs
+
+
+def soups_phase(sources, entries, tg_step_err):
+    """The solver's last ported features on the card: (a) the 3D queries,
+    (b) 3D boundary data, (c) smoke on the cube soup, (d) Taylor-Green
+    under the net source, (e) the points mesh. Returns the fit kernel's
+    report entries of (c) and (d)."""
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.utils.keys import Key
+    t_phase = time.perf_counter()
+    fk.launches = 0
+    q_s = _query_checks()
+    _mixed3d_checks(Key)
+    if fk.launches:
+        raise AssertionError("the 3D walk checks launched the fit kernel")
+    smoke_entry = next(e for e in entries if e["path"] == "smoke")
+    tg_entry = next(e for e in entries if e["path"] == "taylorgreen")
+    soup, soup_s, soup_walk = _soup_smoke_step(sources["smoke"], smoke_entry,
+                                               Key)
+    _net_source_small(sources["taylorgreen"], Key)
+    net, net_s, net_walk = _net_source_step(sources["taylorgreen"],
+                                            tg_entry, tg_step_err)
+    mesh_s = _mesh_check(sources["taylorgreen"], Key)
+    print(f"soups and sources phase done in "
+          f"{time.perf_counter() - t_phase:.1f} s (queries {q_s:.1f} s, "
+          f"soup step {soup_s:.2f} s with walk {soup_walk:.2f} s, net step "
+          f"{net_s:.2f} s with walk {net_walk:.2f} s, mesh "
+          f"{mesh_s[0]:.2f} / {mesh_s[1]:.2f} s)", flush=True)
+    return [soup, net]
+
+
 def cli_entries(fit_entries, launches):
     """Kernel-report entries of the fit kernel on the CLI's runs: the
     measurements of the scene's own path with the CLI's launch count."""
@@ -1455,6 +1913,7 @@ def main():
     print(f"projections phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     fit_entries.append(walks_phase(sources["taylorgreen"], fit_entries))
+    fit_entries += soups_phase(sources, fit_entries, tg_errors[1])
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

@@ -5,8 +5,9 @@ cube [-1, 1]^3 (examples/*/cube.obj); obstacles enter only through the
 hard boundary conditions, not the walk geometry. Seen from inside, the box
 is convex, so it has no silhouettes: the star radius is the one the caller
 caps it at, and a ray leaves through the nearest wall (the slab test).
-Normals point out of the fluid. The walk solver reaches these functions
-through `WostScene.qmod()`, which returns this module for dim 3.
+Normals point out of the fluid. The walk solver and the fluid reach these
+functions through queries3d, which hands a Box3D boundary to this module
+and walks triangle soups itself.
 """
 from typing import NamedTuple
 

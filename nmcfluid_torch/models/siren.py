@@ -87,6 +87,31 @@ def apply_siren(params: Params, cfg: SirenConfig, x):
     return apply_siren_features(params, cfg, x) @ w + b
 
 
+# d act(z) / dz times the tangent dz, in forward mode's order of operations
+_TANGENTS = {
+    "sine": lambda z, dz: torch.cos(OMEGA_0 * z) * (OMEGA_0 * dz),
+    "relu": lambda z, dz: torch.where(z > 0, dz, 0.0),
+    "elu": lambda z, dz: torch.where(z > 0, dz, torch.exp(z) * dz),
+    "tanh": lambda z, dz: (1.0 - torch.tanh(z) ** 2) * dz,
+}
+
+
+def apply_siren_tangents(params: Params, cfg: SirenConfig, x):
+    """The network at x (M, in_features) and its derivative along every
+    input axis at once, by forward mode written out: (u (M, out), du
+    (in, M, out)) with du[i] = d u / d x_i. Each layer carries the in
+    tangents as one (in, M, hidden) batch, so the whole Jacobian costs one
+    pass with no autograd bookkeeping."""
+    act, tangent = _ACTIVATIONS[cfg.nonlinearity], _TANGENTS[cfg.nonlinearity]
+    (w0, b0), *rest = params
+    z = x @ w0 + b0
+    dz = w0[:, None, :].expand(-1, x.shape[0], -1)      # d z / d x_i = W[i]
+    for w, b in rest:
+        h, dh = act(z), tangent(z, dz)
+        z, dz = h @ w + b, dh @ w
+    return z, dz
+
+
 def params_from_numpy(arrays, device="cpu") -> Params:
     """Convert the JAX package's parameters (a list of (W, b) arrays) to
     the port's float32 tensors on `device`."""

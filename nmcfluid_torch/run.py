@@ -16,7 +16,11 @@ Deliberate differences: `--fit_mode auto` is the fused fit on every
 device (the JAX CLI picks its XLA loop on the CPU, where its kernel would
 run interpreted); `--fit_unroll` is accepted and has no effect (the JAX
 package's results are the same for any value); `--profile_dir` writes a
-torch.profiler trace; the JAX CLI's compile cache has no counterpart.
+torch.profiler trace; the JAX CLI's compile cache has no counterpart;
+`--mesh N` spreads the pressure solve's chunks over the first N CUDA
+devices, whole chunks a device (N copies of --device when that is not a
+CUDA device, which exercises the split on one device), where the JAX CLI
+shards its point clouds over a jax Mesh.
 """
 import argparse
 import contextlib
@@ -28,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .parallel import points_mesh
 from .scenes import SCENES, get_scene
 from .sim import sampling
 from .sim.fluid import FitStats, NeuralFluid
@@ -100,7 +105,9 @@ def build_parser():
                    choices=["grid", "net"],
                    help="walk source term: 'grid' is the reference's "
                         "nearest-texel lookup of the divergence grid; "
-                        "'net' is not ported yet")
+                        "'net' evaluates -div u of the network at the "
+                        "sampled point (forward mode; no nearest-cell "
+                        "error); read by --projection wost only")
     p.add_argument("--fit_ensemble", type=int, default=1,
                    help="average N independent phase fits (a measured "
                         "negative in the JAX package; not ported)")
@@ -155,8 +162,10 @@ def build_parser():
                    help="density transport grid (default: the "
                         "reference's 1000^2 / 200^3, move_density.py)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the MC solve over N devices (0 = off; not "
-                        "ported yet)")
+                   help="walk the pressure chunks on N devices, whole "
+                        "chunks a device (0 = off): the first N CUDA "
+                        "devices, or N copies of --device when it is not "
+                        "a CUDA device")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of this run's first "
                         "timestep to DIR/trace.json")
@@ -201,6 +210,12 @@ def make_fluid(args):
     """The NeuralFluid of the flags; raises NotImplementedError for what
     the port does not have. --fit_unroll changes no result."""
     scene = scene_with_overrides(args)
+    mesh = None
+    if args.mesh:
+        if torch.device(args.device).type == "cuda":
+            mesh = points_mesh(args.mesh)
+        else:
+            mesh = points_mesh(devices=[args.device] * args.mesh)
     ws = None
     if (args.n_walks or args.walk_step_cap != 64 or args.walk_algo != "gen"
             or args.pool_step_cap != 1024 or args.adaptive_walks > 0.0):
@@ -227,7 +242,7 @@ def make_fluid(args):
                        fit_ensemble=args.fit_ensemble,
                        wost_source=args.wost_source,
                        loss_trace=args.vis_frequency,
-                       mesh=args.mesh or None,
+                       mesh=mesh,
                        device=args.device)
 
 

@@ -1,25 +1,28 @@
-"""User scenes from 2D line OBJs (port of nmcfluid/scenes/custom.py at
-dim 2).
+"""User scenes from 2D line OBJs and 3D triangle OBJs (port of
+nmcfluid/scenes/custom.py).
 
-As src/2d/main.py:36-59 does with its boundary file: measure the bbox,
-split the boundary segments into outer walls and interior obstacle loops
-(a segment is an obstacle's if either endpoint lies strictly inside the
-bbox), and derive the obstacles' signed distance: the exact polygon SDF
-(crossing-number sign times the distance to the segments, positive in
-the fluid) where the reference fits a circle (main.py:95-103).
+In 2D, as src/2d/main.py:36-59 does with its boundary file: measure the
+bbox, split the boundary segments into outer walls and interior obstacle
+loops (a segment is an obstacle's if either endpoint lies strictly inside
+the bbox), and derive the obstacles' signed distance: the exact polygon
+SDF (crossing-number sign times the distance to the segments, positive in
+the fluid) where the reference fits a circle (main.py:95-103). In 3D the
+bbox gives the scene size and the faces one triangle soup, with no
+obstacle SDF.
 
-The scene walks its whole boundary as one segment soup. Its hard
-boundary conditions are chosen by name (models/boundary.py), so it steps
-under the fluid only when it takes a catalog scene's name, as in the JAX
-package. The 3D form (triangle OBJs) needs the 3D soups and raises.
+The scene walks its whole boundary as one soup. Its hard boundary
+conditions are chosen by name (models/boundary.py), so it steps under
+the fluid only when it takes a catalog scene's name, as in the JAX
+package; `base` gives every other setting, whatever its dimension.
 """
 import dataclasses
 
 import numpy as np
 import torch
 
-from ..geometry.obj_io import read_obj_2d
+from ..geometry.obj_io import read_obj_2d, read_obj_3d
 from ..geometry.soup2d import build_segments
+from ..geometry.soup3d import build_triangles
 from .specs import SCENES
 
 
@@ -56,27 +59,31 @@ def polygon_sdf(verts, segs):
 
 def scene_from_obj(name, obj_path, dim=2, source_builder=None,
                    base="karman", **overrides):
-    """A SceneSpec whose boundary comes from a 2D line OBJ. `base` picks
-    the hyperparameter defaults from the catalog; `source_builder(spec,
-    x, key)` -> velocity defaults to zero inflow."""
-    if dim != 2:
-        raise NotImplementedError(
-            "scene_from_obj: dim=3 needs the 3D triangle soups, not ported "
-            "(ROADMAP queue 1, item 6)")
+    """A SceneSpec whose boundary comes from an OBJ: 2D lines (dim=2) or
+    3D faces, fan-triangulated (dim=3). `base` picks the hyperparameter
+    defaults from the catalog; `source_builder(spec, x, key)` -> velocity
+    defaults to zero inflow."""
     tmpl = SCENES[base]
-    verts, segs = read_obj_2d(obj_path)
-    mn, mx = verts.min(0), verts.max(0)
-    scene_size = (float(mn[0]), float(mx[0]), float(mn[1]), float(mx[1]))
-    strict_in = ((verts > mn + 1e-12) & (verts < mx - 1e-12)).all(1)
-    obs_mask = strict_in[segs[:, 0]] | strict_in[segs[:, 1]]
-    obs_segs = segs[obs_mask]
-    soup = build_segments([(verts, segs)])
     sdf_builder = None
-    if len(obs_segs):
-        sdf = polygon_sdf(verts, obs_segs)
+    if dim == 2:
+        verts, segs = read_obj_2d(obj_path)
+        mn, mx = verts.min(0), verts.max(0)
+        scene_size = (float(mn[0]), float(mx[0]), float(mn[1]),
+                      float(mx[1]))
+        strict_in = ((verts > mn + 1e-12) & (verts < mx - 1e-12)).all(1)
+        obs_mask = strict_in[segs[:, 0]] | strict_in[segs[:, 1]]
+        obs_segs = segs[obs_mask]
+        soup = build_segments([(verts, segs)])
+        if len(obs_segs):
+            sdf = polygon_sdf(verts, obs_segs)
 
-        def sdf_builder(spec):
-            return sdf
+            def sdf_builder(spec):
+                return sdf
+    else:
+        verts, faces = read_obj_3d(obj_path)
+        mn, mx = verts.min(0), verts.max(0)
+        scene_size = tuple(float(v) for pair in zip(mn, mx) for v in pair)
+        soup = build_triangles(verts, faces)
 
     def zero_source(spec, x, key):
         return torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,

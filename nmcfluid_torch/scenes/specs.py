@@ -42,6 +42,7 @@ from ..geometry import sdf
 from ..geometry.analytic2d import FAR, make_analytic2d
 from ..geometry.analytic3d import make_box3d
 from ..geometry.soup2d import build_segments, polyline_chain
+from ..geometry.soup3d import box_tris, build_triangles
 from ..geometry.sdf import dist_to
 from ..models.boundary import JET_CENTER
 from ..wost.solver import WalkSettings
@@ -292,6 +293,13 @@ def _jpipe_sdf(spec):
 def _cube_boundary(spec):
     """The closed cube [-1, 1]^3 with analytic slab queries."""
     return make_box3d((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def _cube_boundary_soup(spec):
+    """The same cube as the reference's 12-triangle cube.obj, walked as a
+    triangle soup (geometry/queries3d.py)."""
+    v, f = box_tris((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    return build_triangles(v, f)
 
 
 def _smoke_obs_sdf(spec):

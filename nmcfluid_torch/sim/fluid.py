@@ -22,24 +22,37 @@ Carlo solve), "spectral" is the DCT box solve with the modal correction
 of a circle, cylinder or sphere obstacle (sim/spectral.py, ops/*_modes.py),
 "bem" the boundary-element solve of any 2D scene (sim/bem.py) and "bvc"
 its Monte Carlo variant, a walk at the boundary cache only (BvcProjector).
-The walk runs on the executor walk_settings.algo names: "gen" or "pool".
+The walk runs on the executor walk_settings.algo names: "gen" or "pool";
+its source term is the divergence grid's nearest texel (wost_source
+"grid", the reference's) or -div u of the network at the sampled point,
+by forward mode (wost_source "net"). With a points mesh (a list of
+devices, parallel/mesh.py) the pressure chunks' walks split into one
+contiguous block of whole chunks a device, walked concurrently, and
+their results gather back on the fluid's device; the fits, the
+divergence grid, the clouds and the other projections run there.
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
-JAX step. Flags and scenes not ported yet raise NotImplementedError
-naming them.
+JAX step. Flags not ported (fit_ensemble, and the walk settings of
+ROADMAP's "Do not port" list) raise NotImplementedError naming them.
 """
+import contextlib
+import dataclasses
 import math
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from .. import get_device
-from ..geometry import analytic3d, queries2d
+from ..geometry import queries2d, queries3d
 from ..models.boundary import apply_boundary
 from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
-                            init_siren)
+                            apply_siren_tangents, init_siren)
+from ..parallel.mesh import points_mesh, replicate, shard_bounds
 from ..utils.keys import Key
 from ..wost.solver import (WalkSettings, WostScene, check_supported,
                            estimate_solution_and_gradient)
@@ -81,11 +94,13 @@ class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
     Takes the JAX package's constructor arguments; those not ported
-    (fit_ensemble, wost_source, mesh, and under "wost" or "bvc" the walk
-    settings of ROADMAP's "Do not port" list) raise NotImplementedError
-    here, and the projections the JAX package refuses
-    (spectral on a scene whose obstacle is not one circle, bem in 3D)
-    ValueError.
+    (fit_ensemble, and under "wost" or "bvc" the walk settings of
+    ROADMAP's "Do not port" list) raise NotImplementedError here, and the
+    projections the JAX package refuses (spectral on a scene whose
+    obstacle is not one circle, bem in 3D) ValueError. wost_source
+    ("grid" or "net") is read by the wost projection only, as in JAX (bvc
+    walks its cache with the grid). `mesh` is a list of torch devices
+    (parallel.points_mesh).
     fit_mode "auto" resolves to "fused" on every device (the JAX package
     picks "xla" on the CPU, where its kernel would run interpreted; the
     port's CPU twin is plain PyTorch). The JAX package's fit_unroll is
@@ -129,11 +144,11 @@ class NeuralFluid:
                 f"--projection {projection} is 2D-only (the 3D scenes' "
                 "WoSt domain is the plain cube, where spectral is already "
                 "exact)")
-        for flag, value, default in (
-                ("fit_ensemble", fit_ensemble, 1),
-                ("wost_source", wost_source, "grid"), ("mesh", mesh, None)):
-            if value != default:
-                _unsupported(flag, value)
+        if fit_ensemble != 1:
+            _unsupported("fit_ensemble", fit_ensemble)
+        if wost_source not in ("grid", "net"):
+            raise ValueError(f"NeuralFluid: unknown wost_source "
+                             f"{wost_source!r}")
         if fit_mode not in ("auto", "fused", "xla"):
             raise ValueError(f"NeuralFluid: unknown fit_mode {fit_mode!r}")
         if lr_schedule not in ("constant", "cosine", "tail"):
@@ -174,16 +189,29 @@ class NeuralFluid:
             hidden_features=scene.hidden_features,
             nonlinearity=scene.nonlinearity,
             normal_init_std=0.1 if scene.dim == 2 else 1.0)
-        self.q = queries2d if scene.dim == 2 else analytic3d
+        self.q = queries2d if scene.dim == 2 else queries3d
         self.boundary = scene.boundary.to(self.device)
         ss = scene.scene_size
 
         def source_lookup(y, grid):
             return sampling.nearest_lookup(grid, ss, y)
 
+        def source_net(y, prev, eps, t):
+            flat = y.reshape(-1, scene.dim)
+            return _neg_divergence(self, prev, eps, t, flat).reshape(
+                y.shape[:-1])
+
+        self.wost_source = wost_source
         self._wost_scene = WostScene(
             dim=scene.dim, neumann=self.boundary, source_fn=source_lookup,
             absorption=scene.absorption)
+        self._wost_scene_net = WostScene(
+            dim=scene.dim, neumann=self.boundary, source_fn=source_net,
+            absorption=scene.absorption)
+        self.mesh = None if mesh is None else points_mesh(devices=mesh)
+        if self.mesh and self.n_pressure // self.wost_chunk < len(self.mesh):
+            # the mesh walks whole chunks: at least one a device
+            self.wost_chunk = max(1, self.n_pressure // len(self.mesh))
         if projection in ("wost", "bvc"):
             # raise now, not at the first walk, for what the walk does not
             # take
@@ -333,10 +361,13 @@ class NeuralFluid:
                 "bvc_solve", _pressure_solve_bvc, self, self._bvc, div_grid,
                 k_wost)
         else:
-            chunks = [self._timed("wost_solve", _pressure_solve, self,
-                                  (div_grid,), k_wost.fold_in(c))
-                      for c in range(self.n_pressure // self.wost_chunk)]
-            pts, valid, p, grad_p = (torch.cat(xs) for xs in zip(*chunks))
+            if self.wost_source == "net":
+                wsc, sargs = self._wost_scene_net, (prev, state.eps,
+                                                    state.timestep)
+            else:
+                wsc, sargs = self._wost_scene, (div_grid,)
+            pts, valid, p, grad_p = _pressure_solve_wost(self, sargs,
+                                                         k_wost, wsc)
         self._last_projection = (pts, p, grad_p, div_grid)
         P = torch.mean(p)     # model_split.py:219
         if self.scene.reset_wts:
@@ -676,28 +707,45 @@ def _fit_project(fluid, params0, prev, pressure_pts, grad_p, key, eps, t):
 _DIV_CHUNK = 1 << 18
 
 
+# forward-mode AD levels are process-wide: the mesh's walk threads take
+# turns in the net source's forward passes
+_JVP_LOCK = threading.Lock()
+
+
+def _neg_divergence(fluid, prev, eps, t, flat):
+    """-div u_prev (hard BCs included) at points flat (M, D), any M, by
+    forward mode: the network's Jacobian written out
+    (apply_siren_tangents), then one dual pass of the hard BCs over D
+    stacked copies of the points, copy d carrying the tangent of axis d
+    (of the raw velocity and of x), in chunks of _DIV_CHUNK lanes."""
+    D = fluid.scene.dim
+    eye = torch.eye(D, device=flat.device)
+    out = [torch.zeros(0, device=flat.device)]
+    with torch.no_grad(), _JVP_LOCK, fwAD.dual_level():
+        for x in flat.split(_DIV_CHUNK // D):
+            M = x.shape[0]
+            raw, draw = apply_siren_tangents(prev, fluid.siren_cfg, x)
+            u = apply_boundary(
+                fluid.scene, fwAD.make_dual(raw.repeat(D, 1),
+                                            draw.reshape(D * M, D)),
+                fwAD.make_dual(x.repeat(D, 1), eye.repeat_interleave(M, 0)),
+                eps=eps, t=t, key=fluid.bc_key)
+            du = fwAD.unpack_dual(u).tangent.reshape(D, M, D)
+            div = du[0, :, 0]
+            for d in range(1, D):
+                div = div + du[d, :, d]
+            out.append(-div)
+    return torch.cat(out)
+
+
 def _divergence_grid(fluid, prev, eps, t):
-    """-div u_prev on the cell-centered div_resolution^dim grid, by forward
-    mode (one jvp per axis) in chunks; the negation matches 'WoSt solves
-    lap u = -f' (model_split.py:233)."""
+    """-div u_prev on the cell-centered div_resolution^dim grid
+    (_neg_divergence); the negation matches 'WoSt solves lap u = -f'
+    (model_split.py:233)."""
     pts = sampling.uniform_grid(fluid.scene.scene_size, fluid.div_resolution,
                                 False, device=fluid.device)
-    flat = pts.reshape(-1, fluid.scene.dim)
-
-    def f(x):
-        return fluid.velocity(prev, x, eps=eps, t=t)
-
-    out = []
-    with torch.no_grad():
-        for x in flat.split(_DIV_CHUNK):
-            div = torch.zeros(x.shape[0], device=x.device)
-            for d in range(fluid.scene.dim):
-                tan = torch.zeros_like(x)
-                tan[:, d] = 1.0
-                _, du = torch.func.jvp(f, (x,), (tan,))
-                div = div + du[:, d]
-            out.append(-div)
-    return torch.cat(out).reshape(pts.shape[:-1])
+    return _neg_divergence(fluid, prev, eps, t, pts.reshape(
+        -1, fluid.scene.dim)).reshape(pts.shape[:-1])
 
 
 def _sample_pressure_cloud(fluid, key):
@@ -719,15 +767,83 @@ def _mask_pressure(fluid, pts, valid, p, grad_p):
     return p, grad_p
 
 
-def _pressure_solve(fluid, source_args, key):
-    """One chunk: pressure cloud + WoSt solution/gradient, masked."""
+def _pressure_solve_wost(fluid, source_args, key, wsc):
+    """The walk-on-stars pressure solve: n_pressure // wost_chunk chunks,
+    chunk c on key.fold_in(c), each timed as "wost_solve"; over the
+    points mesh when there is one (_pressure_solve_mesh). Returns (pts,
+    valid, p, grad_p), the chunks concatenated."""
+    keys = [key.fold_in(c)
+            for c in range(fluid.n_pressure // fluid.wost_chunk)]
+    if fluid.mesh is None:
+        chunks = [fluid._timed("wost_solve", _pressure_solve, fluid,
+                               source_args, k, wsc) for k in keys]
+    else:
+        chunks = fluid._timed("wost_solve", _pressure_solve_mesh, fluid,
+                              source_args, keys, wsc)
+    return tuple(torch.cat(xs) for xs in zip(*chunks))
+
+
+def _pressure_solve(fluid, source_args, key, wsc=None):
+    """One chunk: pressure cloud + WoSt solution/gradient, masked. `wsc`
+    is the grid-source WostScene (the default) or the net-source one, and
+    `source_args` its source's arguments."""
+    wsc = fluid._wost_scene if wsc is None else wsc
     k1, k2 = key.split(2)
     pts, valid = _sample_pressure_cloud(fluid, k1)
     with torch.no_grad():
         p, grad_p, _ = estimate_solution_and_gradient(
-            fluid._wost_scene, fluid.walk_settings, pts, k2,
-            source_args=source_args)
+            wsc, fluid.walk_settings, pts, k2, source_args=source_args)
     return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)
+
+
+def _pressure_solve_mesh(fluid, source_args, keys, wsc):
+    """The chunks of keys over the points mesh, each chunk the one of
+    _pressure_solve: the clouds drawn and the results masked on the
+    fluid's device, the walks in one contiguous block of whole chunks a
+    device (parallel.mesh.shard_bounds) with the scene's boundary and the
+    source's tensors replicated there, one host thread a device (the
+    executors sync the host every step), on a CUDA device on a stream of
+    its own, so that a thread's syncs wait for its own work only. Every
+    walk is the meshless one on the same key, so on one device type the
+    solve equals the meshless one bit for bit."""
+    mesh = fluid.mesh
+    clouds = []
+    for key in keys:
+        k1, k2 = key.split(2)
+        clouds.append((k2,) + _sample_pressure_cloud(fluid, k1))
+    reps = replicate(mesh, source_args)
+    blocks = shard_bounds(len(keys), mesh)
+
+    def walk(k):
+        dev, (a, b) = mesh[k], blocks[k]
+        scene = dataclasses.replace(wsc, neumann=wsc.neumann.to(dev))
+        out = []
+        with contextlib.ExitStack() as ctx:
+            ctx.enter_context(torch.no_grad())
+            if dev.type == "cuda":
+                ctx.enter_context(torch.cuda.device(dev))
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.default_stream(dev))
+                ctx.enter_context(torch.cuda.stream(side))
+            for key, pts, _ in clouds[a:b]:
+                p, g, _ = estimate_solution_and_gradient(
+                    scene, fluid.walk_settings, pts.to(dev), key,
+                    source_args=tuple(reps[k]))
+                out.append((p, g))
+            if dev.type == "cuda":
+                side.synchronize()
+        return out
+
+    with ThreadPoolExecutor(max_workers=len(mesh)) as ex:
+        walks = [w for ws in ex.map(walk, range(len(mesh))) for w in ws]
+    # the results' memory belongs to their streams' pools: keep it from
+    # reuse until the gathers below have run
+    for t in (t for w in walks for t in w if t.is_cuda):
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return [(pts, valid) + _mask_pressure(fluid, pts, valid,
+                                          p.to(fluid.device),
+                                          g.to(fluid.device))
+            for (_, pts, valid), (p, g) in zip(clouds, walks)]
 
 
 def _pressure_solve_bem(fluid, bp, div_grid, key):

@@ -137,7 +137,8 @@ def test_scene_from_obj_matches_jax(tmp_path):
     """The bbox, the whole segment soup (silhouettes included), the
     obstacle SDF and the fluid mask of a two-loop OBJ; bem's closed loops
     as the JAX package takes them (its box only: closed_loops knows the
-    box, circles and jpipe); dim=3 raises naming the 3D soups."""
+    box, circles and jpipe); dim=3, once refused, builds a triangle OBJ's
+    soup as the JAX package does (tests/test_torch_soup3d.py steps one)."""
     ts, js = _two_cylinder_obj(tmp_path / "twocyl.obj", "user2cyl")
     assert ts.scene_size == js.scene_size == (-2.0, 2.0, -1.0, 1.0)
     for a, b in zip(ts.boundary, js.boundary):
@@ -154,8 +155,14 @@ def test_scene_from_obj_matches_jax(tmp_path):
         np.asarray(js.fluid_mask(jnp.asarray(x))))
     for a, b in zip(tbem.closed_loops(ts), jbem.closed_loops(js)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        t_custom.scene_from_obj("x", str(tmp_path / "twocyl.obj"), dim=3)
+    tet = tmp_path / "tet.obj"
+    tet.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\n"
+                   "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
+    t3 = t_custom.scene_from_obj("x", str(tet), dim=3)
+    j3 = j_custom.scene_from_obj("x", str(tet), dim=3)
+    assert t3.dim == j3.dim == 3 and t3.scene_size == j3.scene_size
+    for a, b in zip(t3.boundary, j3.boundary):
+        np.testing.assert_array_equal(to_np(a), np.asarray(b))
 
 
 def test_walk_around_closed_loops_matches_jax(tmp_path):

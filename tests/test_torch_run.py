@@ -111,8 +111,10 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
 @pytest.mark.parametrize("argv,name", [
     pytest.param(["taylorgreen", "--projection", "bvc", "--walk_algo",
                   "lockstep"], "lockstep", id="argv0-projection"),
-    (["taylorgreen", "--mesh", "2"], "mesh"),
-    (["taylorgreen", "--wost_source", "net"], "wost_source"),
+    pytest.param(["taylorgreen", "--mesh", "2", "--fit_ensemble", "2"],
+                 "fit_ensemble", id="argv1-mesh"),
+    pytest.param(["taylorgreen", "--wost_source", "net", "--walk_algo",
+                  "lockstep"], "lockstep", id="argv2-wost_source"),
     pytest.param(["taylorgreen", "--walk_algo", "pool", "--adaptive_walks",
                   "1"], "adaptive_walks", id="argv3-pool"),
     (["taylorgreen", "--fit_ensemble", "2"], "fit_ensemble"),
@@ -125,8 +127,9 @@ def test_unported_raise_before_any_file(tmp_path, argv, name):
     it, and leaves no experiment directory. The lockstep gradient launch
     and adaptive allocation are in ROADMAP's "Do not port" list, under
     every projection that walks (the cases with the ids of the flags
-    they replaced: --projection bvc, --walk_algo pool and --absorption 0
-    are ported)."""
+    they replaced: --projection bvc, --walk_algo pool, --absorption 0,
+    --mesh and --wost_source net are ported, and their cases pair them
+    with a flag that is not)."""
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match=name):
         trun.main(argv + ["--out", str(out), "--device", "cpu"])

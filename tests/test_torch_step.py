@@ -94,14 +94,17 @@ def test_final_state(runs):
                                   dict(projection="bvc",
                                        walk_settings=WalkSettings(
                                            fast_rng=False)),
-                                  dict(mesh=2),
+                                  dict(mesh=["cpu", "cpu"],
+                                       fit_ensemble=2),
                                   dict(walk_settings=WalkSettings(
                                       algo="pool", adaptive_walks=1.0)),
                                   dict(walk_settings=WalkSettings(
                                       algo="lockstep")),
                                   dict(walk_settings=WalkSettings(
                                       fast_rng=False)),
-                                  dict(wost_source="net")])
+                                  dict(wost_source="net",
+                                       walk_settings=WalkSettings(
+                                           algo="pool", adaptive_walks=1.0))])
 def test_unported_flags_raise(over):
     """Flags not ported raise, naming themselves (adv_ref,
     fit_mode="xla", grad_clip and param_ema are ported: see
@@ -111,7 +114,9 @@ def test_unported_flags_raise(over):
     test_torch_bvc.py and test_torch_walk_family.py). The lockstep
     gradient launch (algo "lockstep", and fast_rng=False, which routes
     there) and adaptive allocation are in ROADMAP's "Do not port"
-    list."""
+    list. A points mesh and wost_source="net" are ported
+    (tests/test_torch_mesh.py, test_torch_wost_net.py): their cases pair
+    them with a setting that is not."""
     over = dict(over)
     scene = over.pop("scene", "taylorgreen")
     with pytest.raises(NotImplementedError,

@@ -34,6 +34,7 @@ from nmcfluid.wost import solver as j_solver
 from nmcfluid.wost.gen import estimate_solution_and_gradient_gen as j_gen
 
 from nmcfluid_torch.geometry import analytic3d as t_a3
+from nmcfluid_torch.geometry import box_tris, build_triangles
 from nmcfluid_torch.geometry import soup2d as t_soup
 from nmcfluid_torch.ops import greens2d as t_g2, greens3d as t_g3
 from nmcfluid_torch.utils.keys import Key
@@ -589,7 +590,8 @@ def test_harmonic3d_walk_in_the_cube_matches_jax():
 
 def test_unported_settings_raise_naming_why():
     """The lockstep gradient launch and adaptive allocation name ROADMAP's
-    "Do not port" list; 3D boundary data names the 3D soups."""
+    "Do not port" list; 3D boundary data, once refused, runs on a
+    triangle soup (tests/test_torch_mixed3d.py holds it against JAX)."""
     lib = LIBS["torch"]
     scene = mixed_scene(lib)
     pts = torch.from_numpy(PTS_D)
@@ -599,10 +601,10 @@ def test_unported_settings_raise_naming_why():
         with pytest.raises(NotImplementedError, match="Do not port"):
             t_solver.estimate_solution_and_gradient(
                 scene, t_solver.WalkSettings(**over), pts, Key(0), 8)
-    box = t_a3.make_box3d((-1.0,) * 3, (1.0,) * 3)
+    box = build_triangles(*box_tris((-1.0,) * 3, (1.0,) * 3))
     s3 = t_solver.WostScene(dim=3, neumann=box, absorption=30.0,
                             source_fn=lambda x: x[..., 0],
                             neumann_fn=lambda x: x[..., 0])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        t_solver.estimate_solution(s3, t_solver.WalkSettings(),
-                                   torch.zeros(2, 3), Key(0), 8)
+    p, n, _ = t_solver.estimate_solution(s3, t_solver.WalkSettings(),
+                                         torch.zeros(2, 3), Key(0), 8)
+    assert bool(torch.isfinite(p).all()) and bool((n > 0).all())
