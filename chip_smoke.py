@@ -90,14 +90,28 @@
    against CPU; (e) a ["cuda:0", "cuda:0"] points mesh against the
    meshless solve on 65,536 TG points in two 32,768-point chunks, one a
    device, bit for bit.
+11. The baselines-and-tools phase (baselines_phase): (a) each comparison
+   baseline's loss (INSR's source, advect, pressure and project; PINN;
+   PI-DeepONet) and its gradient by the weights at 3 x 256 on 1,024
+   points, card against CPU on the same weights and draws, within
+   BASELINE_TOL of the magnitude; (b) the shipped widths cut in depth:
+   INSR's source fit and one step on 128^2 points at INSR_ITERS
+   iterations a phase (shipped 20,000), then PINN and PI-DeepONet through
+   nmcfluid_torch.baselines.run.main at TRAIN_ITERS iterations (shipped
+   50,000) with a BASELINE_GRID^2 error grid (shipped 1000^2), each
+   phase's ms an iteration by CUDA events, the error files written and
+   finite, the source loss falling; (c) one frame of the oracle floor
+   (tools_oracle_floor) at Taylor-Green's shipped width: add_source and
+   two source fits, three fit-kernel launches counted, the TG error
+   finite and under ORACLE_BOUND.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
 vortex_collide, the CLI's two runs, the nine projection paths,
-Taylor-Green under bvc, smoke on the cube soup and Taylor-Green under the
-net source),
+Taylor-Green under bvc, smoke on the cube soup, Taylor-Green under the
+net source and the oracle floor),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -1839,6 +1853,194 @@ def soups_phase(sources, entries, tg_step_err):
     return [soup, net]
 
 
+# the baselines-and-tools phase's cuts in depth (widths as shipped)
+INSR_ITERS = 100        # INSR's iterations a phase (shipped 20,000)
+TRAIN_ITERS = 200       # PINN's and PI-DeepONet's (shipped 50,000)
+BASELINE_GRID = 250     # the honest error's grid (shipped 1000)
+BASELINE_TOL = 1e-4     # card against CPU, of the magnitude
+ORACLE_BOUND = 1e-2     # the oracle floor's frame 1 (an untrained net: ~0.5)
+
+
+def _cuda_ms(fn):
+    """(fn(), its milliseconds by CUDA events)."""
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    out = fn()
+    ev1.record()
+    _sync()
+    return out, ev0.elapsed_time(ev1)
+
+
+class _TimedFits:
+    """While open, every SegmentedAdam fit is timed by CUDA events and
+    logged as (iterations, ms)."""
+
+    def __init__(self):
+        from nmcfluid_torch.baselines import common
+        self.cls, self.fit, self.log = common.SegmentedAdam, None, []
+
+    def __enter__(self):
+        self.fit = fit = self.cls.fit
+
+        def timed(fitter, *a, **kw):
+            out, ms = _cuda_ms(lambda: fit(fitter, *a, **kw))
+            self.log.append((out[1], ms))
+            return out
+        self.cls.fit = timed
+        return self.log
+
+    def __exit__(self, *exc):
+        self.cls.fit = self.fit
+
+
+def _baseline_losses(device, Key):
+    """Each baseline's losses at 3 x 256 on 32^2 = 1,024 points on
+    `device`: {name: (loss, params, ctx)}, the weights from keys 0 and 1."""
+    from nmcfluid_torch.baselines import (INSRFluid, PIDeepONetFluid,
+                                          PINNFluid)
+    kw = dict(sample_resolution=32, device=device)
+    insr, pinn, pideep = INSRFluid(**kw), PINNFluid(**kw), \
+        PIDeepONetFluid(**kw)
+    s0, s1 = insr.init(key=Key(0)), insr.init(key=Key(1))
+    return {
+        "insr source": (insr._source_loss, s0["vel"], ()),
+        "insr advect": (insr._advect_loss, s0["vel"], (s1["vel"],)),
+        "insr pressure": (insr._pressure_loss, s0["p"], (s1["vel"],)),
+        "insr project": (insr._project_loss, s0["vel"],
+                         (s1["vel"], s1["p"])),
+        "pinn": (pinn.loss, pinn.init(key=Key(0)), ()),
+        "pideeponet": (pideep.loss, pideep.init(key=Key(0)), ())}
+
+
+def _baselines_card_vs_cpu(Key):
+    """(a) Each loss and its gradient by the weights, card against CPU on
+    the same weights and draws, within BASELINE_TOL of the CPU's
+    magnitude (the loss's; the gradient's largest entry)."""
+    from nmcfluid_torch.utils.checkpoint import tree_leaves, tree_unflatten
+    card, cpu = _baseline_losses("cuda", Key), _baseline_losses("cpu", Key)
+    for name in card:
+        out = []
+        for fn, params, ctx in (card[name], cpu[name]):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            loss = fn(tree_unflatten(params, leaves), Key(5).fold_in(0),
+                      *ctx)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            out.append((float(loss.detach()), torch.cat(
+                [g.reshape(-1) for g in grads]).cpu()))
+        (l_g, g_g), (l_c, g_c) = out
+        err_l = abs(l_g - l_c) / abs(l_c)
+        err_g = float((g_g - g_c).abs().max() / g_c.abs().max())
+        print(f"baseline {name} loss card vs CPU: {l_g:.6e} / {l_c:.6e} "
+              f"(rel {err_l:.2e}), gradient rel {err_g:.2e}", flush=True)
+        if not (err_l <= BASELINE_TOL and err_g <= BASELINE_TOL):
+            raise AssertionError(f"baseline {name}: card vs CPU loss "
+                                 f"{err_l:.2e}, gradient {err_g:.2e}")
+
+
+def _insr_full_width(Key):
+    """(b) INSR's source fit and one step at 3 x 256 on 128^2 points,
+    INSR_ITERS iterations a phase: each phase's ms an iteration, finite
+    losses, the source loss falling."""
+    from nmcfluid_torch.baselines import INSRFluid
+    m = INSRFluid(max_n_iters=INSR_ITERS, device="cuda")
+    st, key = m.init(key=Key(0)), Key(0)
+    with torch.no_grad():
+        l0 = float(m._source_loss(st["vel"], key.fold_in(0)))
+    with _TimedFits() as log:
+        st["vel"], i, loss = m.fit_source(st["vel"], key)
+        st = m.step(st, key.fold_in(1))
+    loss = float(loss)
+    if not (np.isfinite(loss) and loss < 0.5 * l0):
+        raise AssertionError(f"INSR source loss {l0} -> {loss}")
+    for name, params in st.items():
+        for t in params:
+            if not bool(torch.isfinite(t[0]).all()):
+                raise AssertionError(f"INSR {name} weights not finite")
+    names = ("source", "advect", "pressure", "project")
+    ms = {n: ms / it for n, (it, ms) in zip(names, log)}
+    print(f"INSR at 3 x 256 on 128^2 points, {INSR_ITERS} iterations a "
+          f"phase (shipped 20,000): source loss {l0:.4e} -> {loss:.4e}; "
+          + ", ".join(f"{n} {ms[n]:.3f} ms/iter" for n in names), flush=True)
+    return ms
+
+
+def _trainers_full_width(Key, out_root):
+    """(b) PINN and PI-DeepONet through baselines.run.main at TRAIN_ITERS
+    iterations and the BASELINE_GRID grid, 50 frames: the files written,
+    finite curves, ms an iteration."""
+    from nmcfluid_torch.baselines import run as brun
+    ms = {}
+    for method in ("pinn", "pideeponet"):
+        out = os.path.join(out_root, method)
+        with _TimedFits() as log:
+            brun.main([method, "--max_n_iters", str(TRAIN_ITERS), "--grid",
+                       str(BASELINE_GRID), "--out", out])
+        (it, t_ms), = log
+        ms[method] = t_ms / it
+        means = []
+        for f in (f"error_{method}.txt", f"error_{method}_refpipe.txt"):
+            curve = np.loadtxt(os.path.join(out, f))
+            if curve.shape != (50,) or not np.all(np.isfinite(curve)):
+                raise AssertionError(f"{method} {f}: {curve.shape}")
+            means.append(curve.mean())
+        print(f"{method} at 3 x 256 on 128^2 points, {it} iterations "
+              f"(shipped 50,000), grid {BASELINE_GRID} (shipped 1000): "
+              f"{ms[method]:.3f} ms/iter; mean error {means[0]:.4e}, "
+              f"refpipe {means[1]:.4e}", flush=True)
+    return ms
+
+
+def _oracle_floor_frame(tg_entry, Key):
+    """(c) One oracle-floor frame at Taylor-Green's shipped width: the
+    add_source and the frame's two source fits, one fit-kernel launch
+    each, counted; the frame's TG error finite and under ORACLE_BOUND.
+    Returns the fit kernel's report entry on this path."""
+    from nmcfluid_torch import tools_oracle_floor as tof
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim.fluid import NeuralFluid
+    fluid = NeuralFluid(get_scene("taylorgreen"), device="cuda")
+    fk.launches = 0
+    state = fluid.add_source(fluid.init_state(key=Key(0)))
+    (_, err), = tof.oracle_floor(fluid, state, 1)
+    launches = fk.launches
+    if launches != 3 or not (np.isfinite(err) and err < ORACLE_BOUND):
+        raise AssertionError(f"oracle floor: {launches} fit-kernel "
+                             f"launches, error {err}")
+    print(f"oracle floor frame 1: TG error {err:.4e}, {launches} fit-kernel "
+          f"launches (add_source and two fits)", flush=True)
+    entry = dict(tg_entry)
+    entry.update(path="oracle_floor", launches=launches,
+                 launches_per_frame=2)
+    return entry
+
+
+def baselines_phase(tg_entry):
+    """The comparison baselines and the analysis tools on the card: (a)
+    card against CPU, (b) full width cut in depth, (c) the oracle floor.
+    Returns the fit kernel's report entry on the oracle-floor path."""
+    import tempfile
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.utils.keys import Key
+    t_phase = time.perf_counter()
+    fk.launches = 0
+    _baselines_card_vs_cpu(Key)
+    with tempfile.TemporaryDirectory() as tmp:
+        insr_ms = _insr_full_width(Key)
+        train_ms = _trainers_full_width(Key, tmp)
+    if fk.launches:
+        raise AssertionError("the baselines launched the fit kernel")
+    entry = _oracle_floor_frame(tg_entry, Key)
+    print(f"baselines and tools phase done in "
+          f"{time.perf_counter() - t_phase:.1f} s (ms/iter: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in {
+              **{f"insr {k}": v for k, v in insr_ms.items()},
+              **train_ms}.items()) + ")", flush=True)
+    return entry
+
+
 def cli_entries(fit_entries, launches):
     """Kernel-report entries of the fit kernel on the CLI's runs: the
     measurements of the scene's own path with the CLI's launch count."""
@@ -1914,6 +2116,7 @@ def main():
           flush=True)
     fit_entries.append(walks_phase(sources["taylorgreen"], fit_entries))
     fit_entries += soups_phase(sources, fit_entries, tg_errors[1])
+    fit_entries.append(baselines_phase(tg_entry))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

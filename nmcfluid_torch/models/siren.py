@@ -112,6 +112,42 @@ def apply_siren_tangents(params: Params, cfg: SirenConfig, x):
     return z, dz
 
 
+# d² act(z) along one axis, from z, its tangent dz and its second tangent d2z
+_SECONDS = {
+    "sine": lambda z, dz, d2z: OMEGA_0 * (
+        torch.cos(OMEGA_0 * z) * d2z
+        - OMEGA_0 * torch.sin(OMEGA_0 * z) * (dz * dz)),
+    "relu": lambda z, dz, d2z: torch.where(z > 0, d2z, 0.0),
+    "elu": lambda z, dz, d2z: torch.where(z > 0, d2z,
+                                          torch.exp(z) * (d2z + dz * dz)),
+    "tanh": lambda z, dz, d2z: (1.0 - torch.tanh(z) ** 2) * (
+        d2z - 2.0 * torch.tanh(z) * (dz * dz)),
+}
+
+
+def apply_siren_second(params: Params, cfg: SirenConfig, x):
+    """The network at x (M, in_features) with its first and unmixed second
+    derivatives along every input axis, by forward mode written out:
+    (u (M, out), du (in, M, out), d2u (in, M, out)) with d2u[i] =
+    d² u / d x_i², so the Laplacian is d2u.sum(0). Each layer carries z,
+    dz_i and d²z_ii; a linear layer maps all three by its W, and the
+    nonlinearity h = act(z) gives d²h = act''(z) dz² + act'(z) d²z. Plain
+    tensor ops, so autograd differentiates the result by the weights."""
+    name = cfg.nonlinearity
+    if name not in _SECONDS:
+        raise NotImplementedError(
+            f"apply_siren_second: no second derivative of {name!r}")
+    act, tangent, second = _ACTIVATIONS[name], _TANGENTS[name], _SECONDS[name]
+    (w0, b0), *rest = params
+    z = x @ w0 + b0
+    dz = w0[:, None, :].expand(-1, x.shape[0], -1)
+    d2z = torch.zeros_like(dz)
+    for w, b in rest:
+        h, dh, d2h = act(z), tangent(z, dz), second(z, dz, d2z)
+        z, dz, d2z = h @ w + b, dh @ w, d2h @ w
+    return z, dz, d2z
+
+
 def params_from_numpy(arrays, device="cpu") -> Params:
     """Convert the JAX package's parameters (a list of (W, b) arrays) to
     the port's float32 tensors on `device`."""

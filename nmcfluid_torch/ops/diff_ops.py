@@ -63,3 +63,24 @@ def gradient(f, x):
     Returns (..., dim)."""
     return torch.stack([c.reshape(x.shape[:-1]) for c in _columns(f, x)],
                        dim=-1)
+
+
+def laplacian(f, x):
+    """Laplacian of a scalar field by nested forward mode: one jvp of a jvp
+    along each input axis, summed; f maps (n, dim) -> (n,) or (n, 1).
+    Returns (...,)."""
+    dim = x.shape[-1]
+    flat = x.reshape(-1, dim)
+    out = []
+    with torch.no_grad():
+        for xc in flat.split(CHUNK):
+            lap = torch.zeros(xc.shape[0], dtype=xc.dtype, device=xc.device)
+            for d in range(dim):
+                tan = torch.zeros_like(xc)
+                tan[:, d] = 1.0
+
+                def df(y, tan=tan):
+                    return torch.func.jvp(f, (y,), (tan,))[1]
+                lap = lap + torch.func.jvp(df, (xc,), (tan,))[1].reshape(-1)
+            out.append(lap)
+    return torch.cat(out).reshape(x.shape[:-1])

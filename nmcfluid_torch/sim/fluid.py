@@ -441,10 +441,7 @@ def _adam_fit_single(fluid, params0, key, batch_fn):
     flat = torch.cat([t.reshape(-1) for t in leaves])
     ema = flat
     m, v = torch.zeros_like(flat), torch.zeros_like(flat)
-    # the bias corrections 1 - b^(i+1) in float32, as host scalars
-    steps = torch.arange(1, n + 1)
-    bc1s = (1.0 - torch.tensor(ADAM_B1) ** steps).tolist()
-    bc2s = (1.0 - torch.tensor(ADAM_B2) ** steps).tolist()
+    bc1s, bc2s = adam_bias_corrections(n)
     dev = flat.device
     count = torch.zeros((), dtype=torch.int64, device=dev)
     loss = torch.full((), math.inf, device=dev)
@@ -466,10 +463,8 @@ def _adam_fit_single(fluid, params0, key, batch_fn):
             norm = torch.sqrt(sum(torch.sum(gl * gl) for gl in g.split(sizes)))
             g = torch.where(norm < fluid.grad_clip, g,
                             (g / norm) * fluid.grad_clip)
-        new_m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
-        new_v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
-        new_flat = flat - lrs[i] * ((new_m / bc1s[i])
-                                    / (torch.sqrt(new_v / bc2s[i]) + ADAM_EPS))
+        new_flat, new_m, new_v = adam_update(flat, m, v, g, lrs[i], bc1s[i],
+                                             bc2s[i])
         if gamma > 0.0:
             new_ema = (gamma * ema + (1.0 - gamma) * new_flat
                        if i >= ema_start else new_flat)
@@ -498,6 +493,23 @@ def _adam_fit_single(fluid, params0, key, batch_fn):
 
 # iterations between the fresh-batch loop's host reads of its stop flag
 _STOP_CHECK = 32
+
+
+def adam_bias_corrections(n):
+    """optax Adam's bias corrections 1 - b^(i+1) for i < n, computed in
+    float32, as host scalars."""
+    steps = torch.arange(1, n + 1)
+    return ((1.0 - torch.tensor(ADAM_B1) ** steps).tolist(),
+            (1.0 - torch.tensor(ADAM_B2) ** steps).tolist())
+
+
+def adam_update(flat, m, v, g, lr, bc1, bc2):
+    """One optax Adam update (scale_by_adam, then -lr) of the flat
+    parameters by the gradient g, in optax's order of operations; lr is a
+    number or a 0-d tensor. Returns (flat, m, v)."""
+    m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+    v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+    return flat - lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)), m, v
 
 
 def _fused_supported(fluid):

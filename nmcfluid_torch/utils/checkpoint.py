@@ -1,8 +1,10 @@
 """Per-timestep checkpoints of the velocity network (port of
 nmcfluid/utils/checkpoint.py), in the JAX package's npz layout: one file
-per step, `ckpt_step_t{NNN}.npz`, holding the parameter leaves in order
-(W0, b0, W1, b1, ...) as `leaf_{i}` plus the `timestep`. A checkpoint
-written by either package loads in the other.
+per step, `ckpt_step_t{NNN}.npz`, holding the parameter leaves in
+jax.tree_util's order as `leaf_{i}` plus the `timestep`: a list of (W, b)
+layers gives W0, b0, W1, b1, ...; a dict gives its values by sorted key
+(the baselines' INSR state dict(vel=..., p=...) saves p's leaves before
+vel's). A checkpoint written by either package loads in the other.
 """
 import os
 import re
@@ -17,10 +19,34 @@ def _path(model_dir, step_or_name):
     return os.path.join(model_dir, f"ckpt_{step_or_name}.npz")
 
 
+def tree_leaves(tree):
+    """The tensors of a nest of dicts, lists and tuples in
+    jax.tree_util.tree_leaves's order: dict values by sorted key."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """`leaves` (in tree_leaves's order) in the structure of `like`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(sub) for sub in node)
+        return next(it)
+    return build(like)
+
+
 def save_ckpt(model_dir, params, timestep, name=None):
-    """base.py:102-115. Saves the leaves in order + the timestep."""
+    """base.py:102-115. Saves the leaves in tree order + the timestep."""
     os.makedirs(model_dir, exist_ok=True)
-    leaves = [t for pair in params for t in pair]
+    leaves = tree_leaves(params)
     path = _path(model_dir, name if name is not None else int(timestep))
     np.savez(path, timestep=int(timestep),
              **{f"leaf_{i}": t.detach().cpu().numpy()
@@ -31,15 +57,12 @@ def save_ckpt(model_dir, params, timestep, name=None):
 def load_ckpt(model_dir, params_like, step_or_name):
     """base.py:117-127. Returns (params, timestep); `params_like` gives the
     structure and the device."""
-    dev = params_like[0][0].device
-    n = 2 * len(params_like)
+    like = tree_leaves(params_like)
     with np.load(_path(model_dir, step_or_name)) as z:
-        leaves = [torch.as_tensor(z[f"leaf_{i}"], device=dev)
-                  for i in range(n)]
+        leaves = [torch.as_tensor(z[f"leaf_{i}"], device=like[0].device)
+                  for i in range(len(like))]
         t = int(z["timestep"])
-    return [(leaves[2 * i], leaves[2 * i + 1])
-            for i in range(len(params_like))], t
-
+    return tree_unflatten(params_like, leaves), t
 
 
 def latest_step(model_dir):
