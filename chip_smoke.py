@@ -39,7 +39,8 @@
    one 65,536-point pressure chunk, 256^2 points where the shipped step
    walks 512^2 in four chunks at ~244 s, to keep the phases under 900 s),
    jpipe (2 x 128, the walk over its
-   segment soup, the ramp kept, one step, a 1000^2 grid; its fit check
+   segment soup, the ramp kept, one step whose walk is cut to one
+   65,536-point chunk as karman's, a 1000^2 grid; its fit check
    needs pool points with an off-diagonal A and holds the float64 twin at
    JPIPE_ATOL64, its small-input walk nine points in ten at the gen
    tolerance), then the 3D scenes in the closed cube:
@@ -85,11 +86,12 @@
    state, held point by point to the smoke path's step on the analytic
    cube (the same walk inputs), with its P, energy ratio and walk
    seconds; (d) one full-width Taylor-Green step under wost_source "net"
-   from TG's add_source state, its stage times and the TG error bound,
-   after the net source itself and a small net-source walk held card
-   against CPU; (e) a ["cuda:0", "cuda:0"] points mesh against the
-   meshless solve on 65,536 TG points in two 32,768-point chunks, one a
-   device, bit for bit.
+   from TG's add_source state (its walk cut to one 65,536-point chunk),
+   its stage times and the TG error bound, after the net source itself
+   and a small net-source walk held card against CPU; (e) a ["cuda:0",
+   "cuda:0"] points mesh against the meshless solve on 65,536 TG points
+   (MESH_WALKS walks) in two 32,768-point chunks, one a device, bit for
+   bit.
 11. The baselines-and-tools phase (baselines_phase): (a) each comparison
    baseline's loss (INSR's source, advect, pressure and project; PINN;
    PI-DeepONet) and its gradient by the weights at 3 x 256 on 1,024
@@ -104,6 +106,20 @@
    (tools_oracle_floor) at Taylor-Green's shipped width: add_source and
    two source fits, three fit-kernel launches counted, the TG error
    finite and under ORACLE_BOUND.
+12. The executors phase (executors_phase): (a) one Taylor-Green pressure
+   solve under walk_algo "lockstep" (fastrand) at 500 walks on a
+   65,536-point chunk, held against the pool on the same points as an
+   independent realization of one estimator: its mean |dp| and
+   |d grad p| against the pool within EXEC_RATIO x the pool's against
+   itself on another key; (b) the threefry lockstep (fast_rng=False) on
+   the mixed box and the adaptive pool on tests/test_pool.py's obstacle
+   scene, card against CPU on the same streams, the adaptive run's walks
+   against the fixed run's; (c) one Taylor-Green source fit with
+   fit_ensemble 2 at the shipped depth: two fit-kernel launches counted
+   and timed by CUDA events, the first launch's inputs held kernel
+   against twin, its parameters the mean of the two single fits within
+   ENSEMBLE_ATOL; (d) tools_walk_roofline and tools_fit_microbench in
+   --quick mode.
 
 Any failed check raises, so the script exits non-zero. The last three
 lines are the kernel report ({"kernels": [...]}, one entry per kernel with
@@ -111,7 +127,8 @@ its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
 vortex_collide, the CLI's two runs, the nine projection paths,
 Taylor-Green under bvc, smoke on the cube soup, Taylor-Green under the
-net source and the oracle floor),
+net source, the oracle floor and Taylor-Green's fit under fit_ensemble 2,
+two launches a fit),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -119,6 +136,7 @@ import json
 import os
 import re
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -611,10 +629,15 @@ def tg_stage_check(fluid):
 # The last field is the pressure cloud's side (None: the scene's): karman's
 # shipped step walks 512^2 points in four 65,536-point chunks, ~244 s of
 # walk tail, so its step here walks one such chunk (256^2) to keep the
-# phases under 900 s.
+# phases under 900 s; jpipe's (~63 s of walk in four chunks) walks one
+# chunk too since the executors phase came, to keep them under 810 s.
+# With only these two cut the phases read 879.9 s on an H100 whose host
+# ran the walk 1.4x slower than another's, so the net-source step and
+# the CLI's fresh-batch run walk one chunk and the mesh check 100 walks
+# (PERF.md section 6).
 PATHS = (
     ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
-    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
+    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
     ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
     ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
     ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
@@ -821,8 +844,8 @@ def cli_phase(tg_step1, tg_errors):
     3. The fresh-batch fit on the card against the CPU at TG's shapes and
        at smoke's with tanh (_fresh_batch_on_card).
     4. taylorgreen --fit_mode xla --vis_frequency 50 --max_n_iters 200
-       --adv_ref 1: four loss traces of 4 rows, two projections (4 walk
-       chunks each), no fit-kernel launch.
+       --adv_ref 1 --wost_resolution 256: four loss traces of 4 rows, two
+       projections (one walk chunk each), no fit-kernel launch.
     5. curl2d of the TG net on a 64^2 grid, card against CPU, at the
        divergence grid's tolerance (rtol 1e-4 / atol 5e-5).
     Returns the fit-kernel launches of runs 1 and 2 by scene."""
@@ -935,19 +958,20 @@ def cli_phase(tg_step1, tg_errors):
             n = cli(["taylorgreen", "--out", tmp, "--exp_name", "xla",
                      "--fit_mode", "xla", "--vis_frequency", "50",
                      "--max_n_iters", "200", "--adv_ref", "1",
-                     "--n_timesteps", "1", "--stage_times"], "xla")
+                     "--wost_resolution", "256", "--n_timesteps", "1",
+                     "--stage_times"], "xla")
         finally:
             tfluid._pressure_solve = solve
         traces = sorted(f for f in os.listdir(f"{tmp}/xla/txt")
                         if f.startswith("loss_"))
         shapes = {np.loadtxt(f"{tmp}/xla/txt/{f}").shape for f in traces}
         if n != 0 or len(traces) != 4 or shapes != {(4,)} or \
-                len(solves) != 8:
+                len(solves) != 2:
             raise AssertionError(f"CLI fresh-batch run: {n} launches, "
                                  f"traces {traces} {shapes}, {len(solves)}"
                                  f" walk chunks")
-        print(f"CLI fresh-batch adv_ref run: {traces}, 2 projections of 4 "
-              f"walk chunks, no fit-kernel launch", flush=True)
+        print(f"CLI fresh-batch adv_ref run: {traces}, 2 projections of one "
+              f"walk chunk, no fit-kernel launch", flush=True)
 
     # ---- 5. curl2d on the card against the CPU
     scene = get_scene("taylorgreen")
@@ -1742,7 +1766,8 @@ def _net_source_small(tg_source, Key):
 
 def _net_source_step(tg_source, entry, tg_step_err):
     """(d): one full-width Taylor-Green step under wost_source="net" from
-    TG's add_source state: one fit-kernel launch a fit, the stage times,
+    TG's add_source state, its walk cut in depth to one 65,536-point
+    chunk (256^2): one fit-kernel launch a fit, the stage times,
     the TG velocity error under 5e-3 (the projections phase's bound),
     printed beside the grid source's step from the same state. Returns
     (the fit kernel's entry, wall s, walk s)."""
@@ -1752,7 +1777,7 @@ def _net_source_step(tg_source, entry, tg_step_err):
     from nmcfluid_torch.transport.density import (raw_velocity_grid,
                                                   tg_velocity_error)
     fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda",
-                               wost_source="net")
+                               wost_source="net", wost_resolution=256)
     fluid.profile, fluid.stage_times = True, {}
     _walk_report(0.0)
     fk.launches = 0
@@ -1783,11 +1808,17 @@ def _net_source_step(tg_source, entry, tg_step_err):
     return out, wall, stages["wost_solve"]
 
 
+# the mesh check's walks a point: the equality it checks does not depend
+# on them, and a walk's generations (its host time) grow with them
+MESH_WALKS = 100
+
+
 def _mesh_check(tg_source, Key):
     """(e): the wost pressure solve of 65,536 Taylor-Green points (256^2,
-    500 walks) meshless and over a ["cuda:0", "cuda:0"] points mesh, on
-    the same key and divergence grid. The mesh walks whole chunks, at
-    least one a device, so it halves the one 65,536-point chunk; the
+    MESH_WALKS walks) meshless and over a ["cuda:0", "cuda:0"] points
+    mesh, on the same key and divergence grid. The mesh walks whole
+    chunks, at least one a device, so it halves the one 65,536-point
+    chunk; the
     meshless fluid walks the same two 32,768-point chunks in turn, the
     mesh one a device in a host thread each (parallel/mesh.py): points,
     flags, p and grad p equal bit for bit. Returns (meshless s, mesh
@@ -1795,9 +1826,10 @@ def _mesh_check(tg_source, Key):
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fluid as tfluid
     scene = get_scene("taylorgreen")
-    fl0 = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=256)
+    fl0 = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=256,
+                             n_walks=MESH_WALKS)
     fl2 = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=256,
-                             mesh=["cuda:0"] * 2)
+                             n_walks=MESH_WALKS, mesh=["cuda:0"] * 2)
     if (fl2.n_pressure, fl2.wost_chunk) != (65536, 32768):
         raise AssertionError(f"mesh: {fl2.n_pressure} points in chunks of "
                              f"{fl2.wost_chunk}")
@@ -2041,6 +2073,280 @@ def baselines_phase(tg_entry):
     return entry
 
 
+# ----------------------------------------------------------- executors
+
+# the lockstep chunk's side (256^2 = 65,536 points, one pressure chunk)
+# and its bound: its mean |dp| and |d grad p| against the pool within
+# EXEC_RATIO x the pool's against itself on another key
+EXEC_SIDE = 256
+EXEC_RATIO = 1.5
+ENSEMBLE_ATOL = 1e-5    # the fit kernel's check
+
+
+def _lockstep_chunk(tg_source, Key):
+    """(a) One Taylor-Green pressure solve under walk_algo "lockstep"
+    (fastrand) at 500 walks on one 65,536-point chunk through the fluid's
+    _pressure_solve, the divergence grid of TG's add_source state as the
+    source; then the pool on the same points and walk key, and on another
+    walk key: independent realizations of one estimator, so the lockstep
+    chunk's mean |dp| and |d grad p| against the pool stay within
+    EXEC_RATIO x the pool's against itself. Returns the seconds of each."""
+    import dataclasses
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fluid as tfluid
+    from nmcfluid_torch.wost import pool, solver
+    scene = get_scene("taylorgreen")
+    fluid = tfluid.NeuralFluid(scene, device="cuda",
+                               wost_resolution=EXEC_SIDE)
+    ws = fluid.walk_settings
+    lock = tfluid.NeuralFluid(scene, device="cuda", wost_resolution=EXEC_SIDE,
+                              walk_settings=dataclasses.replace(
+                                  ws, algo="lockstep"))
+    div = tfluid._divergence_grid(fluid, tg_source.params, tg_source.eps, 0)
+    key = Key(31)
+    solver.counts.update(dict.fromkeys(solver.counts, 0))
+    secs = {}
+    _sync()
+    t0 = time.perf_counter()
+    pts, valid, p_l, g_l = tfluid._pressure_solve(lock, (div,), key)
+    _sync()
+    secs["lockstep"] = time.perf_counter() - t0
+    passes, steps = solver.counts["passes"], solver.counts["steps"]
+    out = []
+    for k in (key.split(2)[1], Key(32)):
+        _sync()
+        t0 = time.perf_counter()
+        p, g, _ = solver.estimate_solution_and_gradient(
+            fluid._wost_scene, dataclasses.replace(ws, algo="pool"), pts, k,
+            source_args=(div,))
+        _sync()
+        secs.setdefault("pool", []).append(time.perf_counter() - t0)
+        out.append(tfluid._mask_pressure(fluid, pts, valid, p, g))
+    (p_a, g_a), (p_b, g_b) = out
+    means = {"lockstep-pool p": float((p_l - p_a).abs().mean()),
+             "lockstep-pool grad p": float((g_l - g_a).abs().mean()),
+             "pool-pool p": float((p_a - p_b).abs().mean()),
+             "pool-pool grad p": float((g_a - g_b).abs().mean())}
+    print(f"lockstep chunk: {pts.shape[0]} TG points x {ws.n_walks} walks "
+          f"in {secs['lockstep']:.3f} s ({passes} passes, {steps} walk "
+          f"steps); pool {secs['pool'][0]:.3f} / {secs['pool'][1]:.3f} s; "
+          f"mean differences " + json.dumps(
+              {k: float(f"{v:.6e}") for k, v in means.items()}), flush=True)
+    for t in (p_l, g_l):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("lockstep chunk: not finite")
+    for what in ("p", "grad p"):
+        if not (means[f"lockstep-pool {what}"]
+                <= EXEC_RATIO * means[f"pool-pool {what}"]):
+            raise AssertionError(f"lockstep chunk: mean |d {what}| "
+                                 f"{means}")
+    del fluid, lock, div
+    torch.cuda.empty_cache()
+    return secs
+
+
+def _close_to_cpu(name, card, cpu, spread_of):
+    """p and grad p of `card` against `cpu` (each (p, grad p, ...)) at
+    the gen tolerances; where a point is off, the walks phase's
+    _walk_close: nine points in ten, the rest within four times the
+    walk's spread, spread_of() giving (p, grad p) of another key to take
+    it from (run only then)."""
+    other = None
+    for j, (what, rtol, atol) in enumerate((("p", 2e-4, 2e-5),
+                                            ("grad p", 2e-3, 2e-4))):
+        got, want = card[j].cpu(), cpu[j]
+        if bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
+            continue
+        other = other or spread_of()
+        spread = float((want - other[j].cpu()).pow(2).mean().sqrt()) \
+            / 2 ** 0.5
+        _walk_close(f"{name} {what}", got, want, spread, rtol, atol, 0.9)
+
+
+def _small_executors(Key):
+    """(b) The threefry lockstep (fast_rng=False) on the mixed box (16
+    points, 64 walks) and the adaptive pool on the obstacle scene (500
+    walks, 4096 slots, which only reorder the work), card against CPU on
+    the same streams at the walks phase's tolerances (_close_to_cpu); the
+    adaptive run's walks against the fixed run's (gen, 250 pairs a
+    generation). Returns seconds by check."""
+    import dataclasses
+    from nmcfluid_torch.wost import pool
+    from nmcfluid_torch.wost.solver import (WalkSettings,
+                                            estimate_solution_and_gradient)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.uniform(0.1, 1.9, (16, 2)).astype(np.float32))
+    s = WalkSettings(walk_step_cap=256, ignore_dirichlet=False,
+                     fast_rng=False)
+    mixed = {dev: _mixed_scenes(dev)["mixed"][0] for dev in ("cuda", "cpu")}
+    out = {dev: timed(f"threefry lockstep {dev}", lambda dev=dev:
+                      estimate_solution_and_gradient(mixed[dev], s,
+                                                     xs.to(dev), Key(7), 64))
+           for dev in ("cuda", "cpu")}
+    _close_to_cpu("threefry lockstep", out["cuda"], out["cpu"],
+                  lambda: estimate_solution_and_gradient(
+                      mixed["cpu"], s, xs, Key(8), 64))
+    adapt = WalkSettings(walk_step_cap=64, adaptive_walks=1.0,
+                         pool_slots=4096)
+    fixed = dataclasses.replace(adapt, adaptive_walks=0.0,
+                                gen_group_pairs=250)
+    obstacle = {dev: pool.obstacle_scene(dev) for dev in ("cuda", "cpu")}
+
+    def run(dev, settings, seed):
+        scene, pts = obstacle[dev]
+        return timed(f"{'fixed' if settings is fixed else 'adaptive'} {dev} "
+                     f"key {seed}", lambda: estimate_solution_and_gradient(
+                         scene, settings, pts, Key(seed), 500))
+    pool.counts.update(dict.fromkeys(pool.counts, 0))
+    card = run("cuda", adapt, 1)
+    c = dict(pool.counts)
+    cpu = run("cpu", adapt, 1)
+    f1 = run("cuda", fixed, 1)
+    _close_to_cpu("adaptive pool", card, cpu, lambda: run("cpu", adapt, 2))
+    n_a, n_f = int(card[2].sum()), int(f1[2].sum())
+    if not (bool((card[2].cpu() == cpu[2]).float().mean() >= 0.9)
+            and n_a < n_f and int(card[2].min()) >= 16):
+        raise AssertionError(f"adaptive pool: valid walks {card[2]} against "
+                             f"the CPU's {cpu[2]} and the fixed run's {n_f}")
+    print(f"small executors on the card: threefry lockstep on the mixed box "
+          f"and the adaptive pool on the obstacle scene, card against CPU "
+          f"on the same streams; adaptive walks {n_a} against the fixed "
+          f"run's {n_f} ({n_a / n_f:.3f}); {c['rounds']} adaptive rounds, "
+          f"{c['alive'] / (c['rounds'] * 32):.3f} of the points alive in "
+          f"them; seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()}),
+          flush=True)
+    return secs
+
+
+def _ensemble_fit(tg_source, Key):
+    """(c) One Taylor-Green source fit through _fit_source with
+    fit_ensemble 2 at the shipped width and depth: two fit-kernel
+    launches, counted, their device time by CUDA events (the fluid's
+    profile); its parameters the mean of the two single fits on
+    key.fold_in(0x5EED + j) (launched apart, not counted) within
+    ENSEMBLE_ATOL. The first launch's inputs (start params, pool, lr) go
+    through the kernel and the plain twin for 25 iterations, held at the
+    Taylor-Green fit check's tolerance (rtol 2e-4, atol 1e-3). Returns
+    the fit kernel's report entry on this path."""
+    from nmcfluid_torch.scenes import get_scene
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.sim import fluid as tfluid
+    fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda",
+                               fit_ensemble=2)
+    fluid.profile, fluid.stage_times = True, {}
+    key, eps, n = Key(41), fluid.scene.bdry_eps, fluid.max_n_iters
+    inputs = []
+    fit = tfluid.fused_adam_fit
+
+    def recorded(*args):
+        inputs.append(args)
+        return fit(*args)
+    tfluid.fused_adam_fit = recorded
+    fk.launches = 0
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        pe, stats = tfluid._fit_source(fluid, tg_source.params, key, eps, 0)
+        _sync()
+        dt = time.perf_counter() - t0
+    finally:
+        tfluid.fused_adam_fit = fit
+    launches = fk.launches
+    if launches != 2 or len(inputs) != 2 or stats.executor != "fit kernel":
+        raise AssertionError(f"fit_ensemble 2: {launches} launches, "
+                             f"{stats.executor}")
+    kernel_ms = fluid.stage_times["fit_kernel"] * 1e3 / (launches * n)
+    batches = tfluid._SourceBatches(fluid, eps, 0)
+    with torch.no_grad():
+        singles = [tfluid._adam_fit_single(fluid, tg_source.params,
+                                           key.fold_in(0x5EED + j),
+                                           batches)[0] for j in range(2)]
+    err_mean = max(float((e - (a + b) / 2.0).abs().max())
+                   for le, la, lb in zip(pe, *singles)
+                   for e, a, b in zip(le, la, lb))
+    # the first launch's inputs, kernel against twin
+    params0, cfg, pool, _, lr = inputs[0]
+    lr = lr[:25] if isinstance(lr, torch.Tensor) else lr
+    p_k, _ = fk.fused_adam_fit(params0, cfg, pool, 25, lr)
+    _sync()
+    t0 = time.perf_counter()
+    p_r, _ = fk.reference_adam_fit(params0, cfg, pool, 25, lr)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 25
+    err = 0.0
+    for pair_k, pair_r in zip(p_k, p_r):
+        for u, v in zip(pair_k, pair_r):
+            torch.testing.assert_close(u, v, rtol=2e-4, atol=1e-3)
+            err = max(err, float((u - v).abs().max()))
+    print(f"fit_ensemble 2: one TG source fit ({n} iterations a fit) in "
+          f"{dt:.3f} s, {launches} fit-kernel launches, "
+          f"{kernel_ms:.5f} ms/iter on the card, loss "
+          f"{float(stats.loss):.4e}; parameters against the mean of the two "
+          f"single fits: max |d| {err_mean:.3e} (atol {ENSEMBLE_ATOL}); the "
+          f"first launch's inputs, 25 iterations, kernel against twin "
+          f"{err:.3e} (twin {plain_ms:.4f} ms/iter)", flush=True)
+    if not err_mean <= ENSEMBLE_ATOL:
+        raise AssertionError(f"fit_ensemble 2: {err_mean}")
+    entry = _fit_entry("taylorgreen fit_ensemble=2", fluid, launches, None,
+                       err, kernel_ms, plain_ms)
+    entry["launches_per_fit"] = launches
+    return entry
+
+
+def _tools_quick():
+    """(d) tools_walk_roofline and tools_fit_microbench in --quick mode:
+    finite device and host times, the card named."""
+    from nmcfluid_torch import tools_fit_microbench, tools_walk_roofline
+    with tempfile.TemporaryDirectory() as tmp:
+        roof = tools_walk_roofline.main(
+            ["--quick", "--out", os.path.join(tmp, "roof.json")])
+    micro = tools_fit_microbench.main(["--quick", "--scene", "taylorgreen"])
+    rows = [roof["pool_width"]["advance"], roof["pool_width"]["trip"],
+            *micro["ms_per_iter"].values()]
+    for row in rows:
+        for k in ("device_ms", "host_ms"):
+            if k in row and not np.isfinite(row[k]):
+                raise AssertionError(f"tools: {row}")
+    adv, e2e = roof["pool_width"]["advance"], roof["end_to_end"]
+    print(f"tools (--quick): an advance of {roof['config']['S_slots']} slots "
+          f"{adv['host_ms']:.3f} ms host / {adv['device_ms']:.3f} ms device; "
+          "a walk step end to end "
+          + ", ".join(f"{a} {e2e[a]['host_ms_per_walk_step']:.3f} ms host"
+                      for a in e2e)
+          + f"; triad {roof['ceilings']['triad_GBs']:.0f} GB/s, f32 FMA "
+          f"{roof['ceilings']['f32_fma_GFLOPs']:.0f} GFLOP/s; fresh-batch "
+          f"iteration {micro['ms_per_iter']['full_advect_iter']['host_ms']:.3f}"
+          f" ms host", flush=True)
+
+
+def executors_phase(tg_source):
+    """The executors phase: (a) the lockstep chunk, (b) the small
+    executors, (c) the fit ensemble, (d) the two tools. Returns the fit
+    kernel's report entry under fit_ensemble 2."""
+    from nmcfluid_torch.sim import fitkernel as fk
+    from nmcfluid_torch.utils.keys import Key
+    t_phase = time.perf_counter()
+    fk.launches = 0
+    _lockstep_chunk(tg_source, Key)
+    _small_executors(Key)
+    if fk.launches:
+        raise AssertionError("the walks launched the fit kernel")
+    entry = _ensemble_fit(tg_source, Key)
+    _tools_quick()
+    print(f"executors phase done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entry
+
+
 def cli_entries(fit_entries, launches):
     """Kernel-report entries of the fit kernel on the CLI's runs: the
     measurements of the scene's own path with the CLI's launch count."""
@@ -2117,6 +2423,7 @@ def main():
     fit_entries.append(walks_phase(sources["taylorgreen"], fit_entries))
     fit_entries += soups_phase(sources, fit_entries, tg_errors[1])
     fit_entries.append(baselines_phase(tg_entry))
+    fit_entries.append(executors_phase(sources["taylorgreen"]))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": fit_entries + gather_entries}))

@@ -24,8 +24,9 @@ solves from files (scenes/images.py, scenes/custom.py). Entry points:
     python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}
     python -m nmcfluid_torch.bench                   time a frame
 
-each on the card unless given `--device cpu`. Flags not ported yet raise
-NotImplementedError naming the flag.
+each on the card unless given `--device cpu`. Every flag of the JAX CLI
+runs, the JAX package's measured negatives too (--fit_ensemble,
+--adaptive_walks), default-off as there.
 `wost/pallas_probe.py` measures the walk's table gather in the four forms
 the TPU tried, each a hand-written CUDA kernel.
 

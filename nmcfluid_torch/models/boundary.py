@@ -119,5 +119,4 @@ def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
         vel = torch.cat([vel[..., :2], w[..., None]], dim=-1)
         vel = vel * sdf_ramp(scene.obstacle_sdf(x), eps)[..., None]
         return vel * _box_ramps(x, ss, eps, (0, 1))
-    raise NotImplementedError(
-        f"apply_boundary: scene {scene.name!r} is not ported yet")
+    raise NotImplementedError(f"apply_boundary: unknown scene {name!r}")

@@ -38,15 +38,20 @@ def seed_from_words(w0: int, w1: int) -> int:
     return (int(w0) & _U32) ^ ((w1 * _GOLD) & _U32)
 
 
-def uniform(seed: int, step, salt: int, lanes):
-    """U[0,1) float32 per lane. seed: uint32 int; step: int or int64
-    tensor broadcasting against `lanes`; salt: int; lanes: int64 tensor."""
+def uniform(seed, step, salt: int, lanes):
+    """U[0,1) float32 per lane. seed: uint32 int, or an int64 tensor of
+    them broadcasting against `lanes` (a seed per lane); step: int or
+    int64 tensor broadcasting against `lanes`; salt: int; lanes: int64
+    tensor."""
     x = _mul32(lanes.to(torch.int64), _GOLD)
     if isinstance(step, torch.Tensor):
         x = x ^ _mul32(step.to(torch.int64) & _U32, _C_STEP)
     else:
         x = x ^ ((int(step) & _U32) * _C_STEP & _U32)
     x = x ^ ((int(salt) & _U32) * _C_SALT & _U32)
-    x = x ^ (int(seed) & _U32)
+    if isinstance(seed, torch.Tensor):
+        x = x ^ (seed.to(torch.int64) & _U32)
+    else:
+        x = x ^ (int(seed) & _U32)
     bits = _pcg(_pcg(x))
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -9,8 +9,7 @@ checkpoint of either package resumes in the other) and optionally
 velocity and vorticity frames, then optionally replays the density pass
 (`--density`; for taylorgreen it writes the per-frame velocity error to
 `error_ours.txt`). `--ckpt N` resumes from step N and `--until M` stops
-at absolute step M. Flags the port does not have yet raise
-NotImplementedError naming them before any file is written.
+at absolute step M.
 
 Deliberate differences: `--fit_mode auto` is the fused fit on every
 device (the JAX CLI picks its XLA loop on the CPU, where its kernel would
@@ -53,20 +52,25 @@ def build_parser():
     p.add_argument("--div_resolution", type=int, default=None)
     p.add_argument("--n_walks", type=int, default=None)
     p.add_argument("--walk_step_cap", type=int, default=64,
-                   help="the solution-only walk's step cap (no effect on "
-                        "the gradient executors; pool mode caps at "
+                   help="step cap of the lockstep gradient and of the "
+                        "solution-only walk (gen caps its walks at the "
+                        "walk settings' gen_step_cap, pool mode at "
                         "--pool_step_cap)")
     p.add_argument("--walk_algo", default="gen",
                    choices=["pool", "gen", "lockstep"],
                    help="WoSt gradient executor: point-aligned "
-                        "generations ('gen') or the compacted walker pool "
-                        "('pool'); 'lockstep' is in ROADMAP's \"Do not "
-                        "port\" list and raises")
+                        "generations ('gen'), the compacted walker pool "
+                        "('pool', cost ~ the sum of walk lengths) or the "
+                        "lockstep pair loop ('lockstep': pairs walked side "
+                        "by side, control variates refreshed per pair)")
     p.add_argument("--pool_step_cap", type=int, default=1024)
     p.add_argument("--adaptive_walks", type=float, default=0.0,
-                   help="adaptive MC walk allocation (pool mode; a "
-                        "measured negative, not ported); 0 = the "
-                        "reference's fixed n_walks")
+                   help="adaptive MC walk allocation on the pool: kappa "
+                        "scaling of the equal-RMS-error optimal budget "
+                        "n_i ~ sigma_i, in geometric rounds; 0 = the "
+                        "reference's fixed n_walks per point (default; "
+                        "a measured negative on karman in the JAX "
+                        "package, PARITY.md:652)")
     p.add_argument("--grad_clip", type=float, default=-1.0,
                    help="global-l2 gradient clip for the phase fits, "
                         "<=0 off (config.py --grad_clip)")
@@ -109,8 +113,10 @@ def build_parser():
                         "sampled point (forward mode; no nearest-cell "
                         "error); read by --projection wost only")
     p.add_argument("--fit_ensemble", type=int, default=1,
-                   help="average N independent phase fits (a measured "
-                        "negative in the JAX package; not ported)")
+                   help="average N independent phase fits from one "
+                        "start on folded keys (default 1; a measured "
+                        "negative in the JAX package, "
+                        "error_bem_ens2_r5.txt)")
     p.add_argument("--fit_unroll", type=int, default=4,
                    help="accepted for the JAX CLI's sake; no effect (its "
                         "results are the same for any value)")
@@ -207,8 +213,7 @@ def scene_with_overrides(args):
 
 
 def make_fluid(args):
-    """The NeuralFluid of the flags; raises NotImplementedError for what
-    the port does not have. --fit_unroll changes no result."""
+    """The NeuralFluid of the flags. --fit_unroll changes no result."""
     scene = scene_with_overrides(args)
     mesh = None
     if args.mesh:

@@ -33,8 +33,10 @@ divergence grid, the clouds and the other projections run there.
 
 Randomness walks the JAX package's key tree call for call through a key
 object (utils/keys.py), so the JAX-replay key of the tests reproduces a
-JAX step. Flags not ported (fit_ensemble, and the walk settings of
-ROADMAP's "Do not port" list) raise NotImplementedError naming them.
+JAX step. With fit_ensemble N > 1 every phase fit is N fits from the
+same start on the folded keys key.fold_in(0x5EED + j), their parameters
+averaged (`_adam_fit`); the JAX package measured it as a negative
+(error_bem_ens2_r5.txt), and it stays default-off.
 """
 import contextlib
 import dataclasses
@@ -54,7 +56,7 @@ from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             apply_siren_tangents, init_siren)
 from ..parallel.mesh import points_mesh, replicate, shard_bounds
 from ..utils.keys import Key
-from ..wost.solver import (WalkSettings, WostScene, check_supported,
+from ..wost.solver import (WalkSettings, WostScene,
                            estimate_solution_and_gradient)
 from . import sampling
 from .bem import BemProjector, BvcProjector
@@ -85,19 +87,15 @@ class FitStats(NamedTuple):
     trace: Optional[torch.Tensor] = None
 
 
-def _unsupported(flag, value):
-    raise NotImplementedError(
-        f"NeuralFluid: {flag}={value!r} is not ported yet")
-
-
 class NeuralFluid:
     """Host-side orchestrator of the phase fits and the pressure solve.
 
-    Takes the JAX package's constructor arguments; those not ported
-    (fit_ensemble, and under "wost" or "bvc" the walk settings of
-    ROADMAP's "Do not port" list) raise NotImplementedError here, and the
-    projections the JAX package refuses (spectral on a scene whose
-    obstacle is not one circle, bem in 3D) ValueError. wost_source
+    Takes the JAX package's constructor arguments; the projections the
+    JAX package refuses (spectral on a scene whose obstacle is not one
+    circle, bem in 3D) raise ValueError. fit_ensemble N > 1 averages N
+    fits a phase (`_adam_fit`; default 1, a measured negative in JAX).
+    The walk runs on the executor walk_settings names (gen, pool or
+    lockstep; adaptive allocation on the pool). wost_source
     ("grid" or "net") is read by the wost projection only, as in JAX (bvc
     walks its cache with the grid). `mesh` is a list of torch devices
     (parallel.points_mesh).
@@ -144,8 +142,6 @@ class NeuralFluid:
                 f"--projection {projection} is 2D-only (the 3D scenes' "
                 "WoSt domain is the plain cube, where spectral is already "
                 "exact)")
-        if fit_ensemble != 1:
-            _unsupported("fit_ensemble", fit_ensemble)
         if wost_source not in ("grid", "net"):
             raise ValueError(f"NeuralFluid: unknown wost_source "
                              f"{wost_source!r}")
@@ -168,6 +164,7 @@ class NeuralFluid:
         self.loss_trace = loss_trace
         self.ls_head = ls_head
         self.fit_pool = fit_pool
+        self.fit_ensemble = max(1, int(fit_ensemble))
         self.max_n_iters = max_n_iters or scene.max_n_iters
         self.sample_resolution = sample_resolution or scene.sample_resolution
         self.wost_resolution = wost_resolution or scene.wost_resolution
@@ -213,9 +210,7 @@ class NeuralFluid:
             # the mesh walks whole chunks: at least one a device
             self.wost_chunk = max(1, self.n_pressure // len(self.mesh))
         if projection in ("wost", "bvc"):
-            # raise now, not at the first walk, for what the walk does not
-            # take
-            check_supported(self._wost_scene, self.walk_settings)
+            # the Green's function's radius table, built once on the host
             self._wost_scene.greens()
         self._bbox_lo = torch.tensor(ss[0::2], dtype=torch.float32,
                                      device=self.device)
@@ -404,6 +399,24 @@ def _velocity_grid(fluid, params, eps, t, resolution, with_boundary):
 
 
 # ------------------------------------------------------------ phase fits
+
+
+def _adam_fit(fluid, params0, key, batch_fn):
+    """A phase fit (fluid.py:459-478): _adam_fit_single, or with
+    fit_ensemble N > 1, N of them from the same start params0 on the keys
+    key.fold_in(0x5EED + j), their parameters averaged leaf by leaf; the
+    stats carry the first fit's iters and trace, the mean loss and the
+    executor of the single fit."""
+    n_ens = fluid.fit_ensemble
+    if n_ens == 1:
+        return _adam_fit_single(fluid, params0, key, batch_fn)
+    outs = [_adam_fit_single(fluid, params0, key.fold_in(0x5EED + j),
+                             batch_fn) for j in range(n_ens)]
+    params = [tuple(sum(leaves) / float(n_ens) for leaves in zip(*layers))
+              for layers in zip(*(p for p, _ in outs))]
+    first = outs[0][1]
+    return params, first._replace(
+        loss=sum(s.loss for _, s in outs) / float(n_ens))
 
 
 def _adam_fit_single(fluid, params0, key, batch_fn):
@@ -692,26 +705,26 @@ class _ProjectBatches(_PhaseBatches):
 def _fit_source(fluid, params0, key, eps, t):
     """_add_source (base.py:313-335): fit u to the scene's initial field."""
     with torch.no_grad():
-        return _adam_fit_single(fluid, params0, key,
-                                _SourceBatches(fluid, eps, t))
+        return _adam_fit(fluid, params0, key,
+                         _SourceBatches(fluid, eps, t))
 
 
 def _fit_advect(fluid, flag, params0, prev, tilde, dt, key, eps, t):
     """_advect_velocity (model_split.py:87-120): semi-Lagrangian fit;
     flag=True is the MacCormack correction against tilde."""
     with torch.no_grad():
-        return _adam_fit_single(fluid, params0, key,
-                                _AdvectBatches(fluid, flag, prev, tilde, dt,
-                                               eps, t))
+        return _adam_fit(fluid, params0, key,
+                         _AdvectBatches(fluid, flag, prev, tilde, dt, eps,
+                                        t))
 
 
 def _fit_project(fluid, params0, prev, pressure_pts, grad_p, key, eps, t):
     """Projection fit (model_split.py:274-284): minibatch the fixed
     pressure cloud, target u_prev - grad p."""
     with torch.no_grad():
-        return _adam_fit_single(fluid, params0, key,
-                                _ProjectBatches(fluid, prev, pressure_pts,
-                                                grad_p, eps, t))
+        return _adam_fit(fluid, params0, key,
+                         _ProjectBatches(fluid, prev, pressure_pts, grad_p,
+                                         eps, t))
 
 
 # ----------------------------------------------------- projection stages

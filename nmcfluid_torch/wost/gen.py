@@ -28,8 +28,7 @@ from .pool import (_SALT_JIT_B, _SALT_JIT_S, _SALT_U2A, _SALT_U2B,
                    PointData, _first_greens, _precompute, _strat_dir)
 from .solver import (ACTIVE, DONE_DIRICHLET, DONE_RR, DROP_MAXLEN,
                      WalkSettings, WalkState, WostScene, _advance,
-                     _fresh_state, check_supported, has_terminal,
-                     terminal_values)
+                     _fresh_state, has_terminal, terminal_values)
 
 # walk counts since the caller last zeroed them: generations run, steps
 # advanced (one `_advance` each) and the lanes those steps advanced; read
@@ -162,7 +161,8 @@ def estimate_solution_and_gradient_gen(scene: WostScene,
     """Solution and gradient of the screened Poisson problem at interior
     points pts (N, D) (gen.py:223-271). `key` is a key object
     (utils/keys.py). Returns (p (N,), grad (N, D), n_valid (N,) int32)."""
-    check_supported(scene, settings)
+    if not settings.fast_rng:
+        raise ValueError("gen mode needs the counter-based fast RNG")
     n_walks_total = n_walks or settings.n_walks
     n_anti = 2 if settings.use_gradient_antithetic_variates else 1
     n_pairs = (max(1, n_walks_total // 2) if n_anti == 2

@@ -9,17 +9,19 @@ Neumann boundary term when the boundary data is nonzero, the in-ball
 source sample along the walk direction, Russian roulette on the
 direction-sampled Poisson kernel, harmonic Green's functions for the
 first `steps_before_tikhonov` steps, and termination inside the epsilon
-shell of a Dirichlet boundary. `estimate_solution` is the solution-only
-walk (`_walk`): all (walk, point) lanes advance together, keyed either by
-fastrand on (loop step, lane) or, with fast_rng=False, by one
-key.fold_in(step).fold_in(salt + 16).uniform draw per salt, as the JAX
-package keys them. The gradient estimator runs on the generation
-executor (wost/gen.py) or the walker pool (wost/pool.py);
-`estimate_solution_and_gradient` routes between them. Every branch runs
-in 2D (segment soups, geometry/queries2d.py) and in 3D (triangle soups,
-geometry/queries3d.py; the shipped scenes' cube by its closed forms).
-The lockstep gradient launch and adaptive walk allocation are not ported:
-`check_supported` names them.
+shell of a Dirichlet boundary. `_walk` advances lanes until they end,
+keyed either by fastrand on (loop step, lane) or, with fast_rng=False, by
+one key.fold_in(step).fold_in(salt + 16).uniform draw per salt, as the
+JAX package keys them; `estimate_solution` is the solution-only walk.
+`estimate_solution_and_gradient` routes the gradient estimator as the
+JAX package does: to the generation executor (wost/gen.py) or the walker
+pool (wost/pool.py, also every adaptive run) under the fast RNG, and
+to the lockstep executor (`_lockstep_gradient`, the JAX package's
+_grad_launch: antithetic pairs walked side by side, control variates
+refreshed per pair batch) under algo="lockstep" or fast_rng=False. Every
+branch runs in 2D (segment soups, geometry/queries2d.py) and in 3D
+(triangle soups, geometry/queries3d.py; the shipped scenes' cube by its
+closed forms).
 """
 import dataclasses
 import math
@@ -31,23 +33,31 @@ import torch
 from ..geometry import queries2d, queries3d
 from ..geometry.sdf import sqrt_rn
 from ..ops import fastrand, greens2d, greens3d
-from ..ops.sampling import unit_sphere_from_u
+from ..ops.sampling import pdf_unit_sphere, unit_sphere_from_u
 
 RADIUS_SHRINK = 0.99  # walk_on_stars.h:9
 
 # walk completion codes
 ACTIVE, DONE_RR, DONE_DIRICHLET, DROP_ESCAPED, DROP_MAXLEN = 0, 1, 2, 3, 4
 
-# what check_supported names for the settings that are not ported
-_DO_NOT_PORT = "in ROADMAP's \"Do not port\" list"
+# lanes a lockstep pass holds at most (whole pairs; at least one): the
+# walker pool's slots at a 65,536-point chunk, min(8 N, 2^20)
+_LOCKSTEP_LANES = 1 << 19
+
+# counts since the caller last zeroed them: the lockstep gradient's
+# passes (a pass walks a block of pairs side by side) and the loop steps
+# of _walk (the solution-only walk's and the lockstep gradient's)
+counts = {"passes": 0, "steps": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class WalkSettings:
     """Mirror of zombie::WalkSettings (walk_on_stars.h:679-742) and of the
     JAX package's estimator settings, less its TPU launch guards
-    (pairs_per_launch, pool_trips_per_launch, gen_groups_per_launch,
-    gen_tail_div) and the lockstep gradient's pair_batch."""
+    (pool_trips_per_launch, gen_groups_per_launch, gen_tail_div).
+    pairs_per_launch stays as what it also is in JAX: with pair_batch the
+    partition of the lockstep gradient's pairs into batches that share a
+    control-variate refresh."""
     epsilon_shell: float = 1e-3
     min_star_radius: float = 1e-3
     silhouette_precision: float = 1e-3
@@ -56,7 +66,7 @@ class WalkSettings:
     steps_before_tikhonov: int = 0
     steps_before_maximal_spheres: int = 10_000
     n_walks: int = 500
-    # the solution-only walk's loop cap (estimate_solution)
+    # the loop cap of the solution-only walk and of the lockstep gradient
     walk_step_cap: int = 64
     ignore_dirichlet: bool = True
     ignore_neumann: bool = False
@@ -68,7 +78,13 @@ class WalkSettings:
     use_gradient_control_variates: bool = True
     use_gradient_antithetic_variates: bool = True
     fast_rng: bool = True
-    # gradient executor: "gen" (wost/gen.py) or "pool" (wost/pool.py)
+    # the lockstep gradient's pairs run in launches of pairs_per_launch,
+    # each in batches of min(pair_batch, launch pairs) whose control
+    # variates are refreshed once (solver.py:736-760)
+    pair_batch: int = 1
+    pairs_per_launch: int = 50
+    # gradient executor: "gen" (wost/gen.py), "pool" (wost/pool.py) or
+    # "lockstep" (_lockstep_gradient, which also takes fast_rng=False)
     algo: str = "gen"
     # walker pool: slots (0 -> min(8 N, 2^20)), walk steps between
     # scatter/refill trips, and the per-walk step cap
@@ -78,7 +94,12 @@ class WalkSettings:
     # pairs run with zero control variates before the CVs freeze
     # (walk_on_stars.h:501-506)
     cv_warmup_pairs: int = 16
+    # adaptive walk allocation (the pool's optimal-allocation rounds,
+    # wost/pool.py): kappa > 0 turns it on, over adaptive_rounds rounds.
+    # Default off: the JAX package measured it as a negative on karman
+    # (PARITY.md:652)
     adaptive_walks: float = 0.0
+    adaptive_rounds: int = 4
     # generation executor: pairs per generation, and the per-walk step
     # cap beyond which a walk is dropped (reference maxWalkLength)
     gen_group_pairs: int = 4
@@ -126,27 +147,6 @@ def _get_greens(dim: int, absorption: float):
 
 def _harmonic(dim):
     return greens2d.Harmonic2D if dim == 2 else greens3d.Harmonic3D
-
-
-def check_supported(scene: WostScene, settings: WalkSettings,
-                    gradient: bool = True):
-    """Raise NotImplementedError for what is not ported: the lockstep
-    gradient executor (algo="lockstep", and fast_rng=False, which the JAX
-    package routes there) and adaptive walk allocation, both in ROADMAP's
-    "Do not port" list. `gradient=False` checks the solution-only walk,
-    which takes any algo and either RNG."""
-    bad = []
-    if gradient:
-        if settings.algo not in ("gen", "pool"):
-            bad.append(f"algo={settings.algo!r}: the lockstep gradient "
-                       f"launch is {_DO_NOT_PORT} (use 'gen' or 'pool')")
-        elif not settings.fast_rng:
-            bad.append("fast_rng=False: the JAX package routes it to the "
-                       f"lockstep gradient launch, {_DO_NOT_PORT}")
-        if settings.adaptive_walks > 0.0:
-            bad.append(f"adaptive_walks: a measured negative {_DO_NOT_PORT}")
-    if bad:
-        raise NotImplementedError("WoSt: not ported: " + "; ".join(bad))
 
 
 class WalkState(NamedTuple):
@@ -419,34 +419,58 @@ def terminal_values(scene, settings, x, status):
 
 
 def _walk(scene, greens, settings: WalkSettings, state: WalkState, key,
-          source_args=()):
+          source_args=(), rand_shape=None):
     """Advance the lanes of `state` until every walk has terminated or
     walk_step_cap steps have run; lanes still active then are dropped
-    (DROP_MAXLEN). Draws are keyed on (loop step, lane position): by
-    fastrand with fast_rng, else one key.fold_in(step).fold_in(salt + 16)
-    .uniform draw over all lanes per salt (solver.py:480-511). Only the
-    active lanes are advanced, and the streams are per lane, so this gives
-    the same walks as advancing every lane. Returns (total, valid, steps)
-    in the lanes' shape."""
+    (DROP_MAXLEN). `key` is one key, or a list of P keys for P equal
+    leading blocks of the lanes (a lockstep pass of P pairs, each pair on
+    its own key, as the JAX package's vmap over pairs). Within a block the
+    draws are made over `rand_shape`, a trailing part of the block's shape
+    (None: the whole block), and broadcast over the rest: the two halves
+    of an antithetic pair share their uniforms (solver.py:480-531,
+    walk_on_stars.h:579). They are keyed on (loop step, lane of
+    rand_shape): by fastrand with fast_rng, else one
+    key.fold_in(step).fold_in(salt + 16).uniform(rand_shape) draw per salt.
+    Only the active lanes are advanced, and the streams are per lane, so
+    this gives the same walks as advancing every lane. Returns (total,
+    valid, steps) in the lanes' shape."""
     shape = state.status.shape
     dev = state.x.device
+    keys = key if isinstance(key, list) else [key]
+    P = len(keys)
     flat = WalkState(*(f.reshape((-1,) + f.shape[len(shape):])
                        for f in state))
     n = flat.status.shape[0]
+    block = n // P
+    rshape = tuple(shape[1:] if P > 1 else shape) if rand_shape is None \
+        else tuple(rand_shape)
+    n_rand = math.prod(rshape)
     lanes = torch.arange(n, device=dev)
-    seed = key.stream_seed() if settings.fast_rng else None
+    if settings.fast_rng:
+        seeds = [k.stream_seed() for k in keys]
+        seed_of = torch.tensor(seeds, dtype=torch.int64, device=dev)
     out = [f.clone() for f in flat]
     idx, sub = lanes, flat
     for it in range(settings.walk_step_cap):
+        counts["steps"] += 1
+        blk = torch.div(idx, block, rounding_mode="floor")
+        r = torch.remainder(idx - blk * block, n_rand)
         if settings.fast_rng:
-            def draw(salt, shp, it=it, ids=idx):
-                return fastrand.uniform(seed, it, salt, ids).expand(shp)
-        else:
-            kstep = key.fold_in(it)
+            seed = seeds[0] if P == 1 else seed_of[blk]
 
-            def draw(salt, shp, kstep=kstep, ids=idx):
-                u = kstep.fold_in(salt + 16).uniform(shape, dev)
-                return u.reshape(-1)[ids].expand(shp)
+            def draw(salt, shp, it=it, seed=seed, r=r):
+                return fastrand.uniform(seed, it, salt, r).expand(shp)
+        else:
+            # one draw a salt for each block with active lanes
+            live = torch.unique(blk).tolist()
+            row = torch.zeros(P, dtype=torch.int64, device=dev)
+            row[live] = torch.arange(len(live), device=dev)
+            ksteps = [keys[b].fold_in(it) for b in live]
+            pick = row[blk] * n_rand + r
+
+            def draw(salt, shp, ksteps=ksteps, pick=pick):
+                u = _uniform_rows(ksteps, salt + 16, rshape, dev)
+                return u.reshape(-1)[pick].expand(shp)
         sub = _advance(scene, greens, settings, sub, draw, source_args)
         for o, f in zip(out, sub):
             o[idx] = f
@@ -483,7 +507,6 @@ def estimate_solution(scene: WostScene, settings: WalkSettings, pts, key,
     """The PDE solution at pts (N, D) from n_walks walks each
     (solver.py:546-567). `key` is a key object (utils/keys.py). Returns
     (p (N,), n_valid (N,) int64, mean_steps (N,))."""
-    check_supported(scene, settings, gradient=False)
     greens = scene.greens()
     n_walks = n_walks or settings.n_walks
     N = pts.shape[0]
@@ -501,18 +524,192 @@ def estimate_solution(scene: WostScene, settings: WalkSettings, pts, key,
     return p, n_valid, mean_steps
 
 
+def _uniform_rows(keys, data, shape, device):
+    """Each key's key.fold_in(data).uniform(shape) draw, stacked."""
+    return torch.stack([k.fold_in(data).uniform(shape, device)
+                        for k in keys])
+
+
+def _stratified_pair_u(jit, w, n_pairs, rot, dim):
+    """Per-pair stratified uniforms in [0,1)^{dim-1} with the per-point
+    Cranley-Patterson rotation `rot` (N, dim-1), standing in for the
+    per-point stratified sequences of walk_on_stars.h:489-491
+    (solver.py:570-586), for the pairs w (P, 1) int64 at once: `jit` is
+    each pair's key.uniform over the points, (P, N), and (P, N, 2) in 3D,
+    where the pair index is laid on a near-square grid for 2D strata.
+    Returns (P, N, dim-1)."""
+    if dim == 2:
+        u = torch.remainder((w.to(torch.float32) + jit) / n_pairs
+                            + rot[..., 0], 1.0)
+        return u[..., None]
+    a = int(math.ceil(math.sqrt(n_pairs)))
+    wi = torch.remainder(w, a).to(torch.float32)
+    wj = torch.div(w, a, rounding_mode="floor").to(torch.float32)
+    u0 = torch.remainder((wi + jit[..., 0]) / a + rot[..., 0], 1.0)
+    u1 = torch.remainder((wj + jit[..., 1]) / ((n_pairs + a - 1) // a)
+                         + rot[..., 1], 1.0)
+    return torch.stack([u0, u1], dim=-1)
+
+
+def _pair_batches(settings, n_pairs):
+    """The lockstep gradient's partition of the pair indices
+    (solver.py:617-629, 736-760): launches of pairs_per_launch pairs, each
+    in batches of G = min(pair_batch, the launch's pairs); the control
+    variates are refreshed at the start of each batch. Returns the
+    batches as (first pair, end) ranges, in order; a launch's last batch
+    is cut at the launch's end (JAX pads it and drops the padding)."""
+    L = max(1, settings.pairs_per_launch)
+    out = []
+    for lo in range(0, n_pairs, L):
+        hi = min(lo + L, n_pairs)
+        G = max(1, min(settings.pair_batch, hi - lo))
+        out += [(b, min(b + G, hi)) for b in range(lo, hi, G)]
+    return out
+
+
+def _lockstep_gradient(scene: WostScene, settings: WalkSettings, pts, key,
+                       n_walks=None, mask_invalid=True, source_args=()):
+    """The lockstep gradient estimator (solver.py:612-763, _grad_launch):
+    antithetic pairs with the first ball at 0.99 x the distance to the
+    boundary (harmonic while Tikhonov is delayed), per pair w the key
+    kw = key.fold_in(w): stratified first directions from kw.fold_in(0)
+    and kw.fold_in(2) with the per-point rotation from
+    key.fold_in(0xC0FFEE), the first radius from kw.fold_in(1), the walk
+    on kw.fold_in(3) with the halves' draws shared over the points (N,);
+    the e^{-Z}-free ratios pk_grad_over_thr and grad_norm_over_eval; the
+    control variates from the running sums, refreshed at each batch of
+    _pair_batches.
+
+    The walks of a pair do not depend on the control variates, only the
+    gradient's combination does. So the pairs are walked side by side in
+    passes of as many pairs as fit in _LOCKSTEP_LANES lanes, their sums
+    kept per pair, and folded in pair order, batch by batch: the
+    sequential loop's numbers. Returns (p, grad (N, D), n_valid (N,)
+    int32)."""
+    greens = scene.greens()
+    q = scene.qmod()
+    D = scene.dim
+    g1 = greens
+    if scene.absorption > 0.0 and settings.steps_before_tikhonov > 0:
+        g1 = _harmonic(D)
+    n_walks = n_walks or settings.n_walks
+    anti = settings.use_gradient_antithetic_variates
+    n_pairs = max(1, n_walks // 2) if anti else n_walks
+    n_anti = 2 if anti else 1
+    N = pts.shape[0]
+    dev = pts.device
+
+    nd = q.distance(scene.neumann, pts)
+    dd = _dirichlet_dist(scene, pts)
+    R1 = RADIUS_SHRINK * torch.minimum(nd, dd)          # walk_on_stars.h:486
+    degenerate = R1 <= 1e-6
+    R1 = torch.clamp(R1, min=1e-6)
+    ball1 = g1.make_ball(R1)
+    norm1 = g1.norm(ball1)
+    thr1 = g1.pk_over_uniform(ball1)
+    pk_ratio = g1.pk_grad_over_thr(ball1)
+    b_pdf = pdf_unit_sphere(D)
+    rot = key.fold_in(0xC0FFEE).uniform((N, D - 1), dev)
+    rot_b = torch.remainder(rot + 0.5, 1.0)
+    signs = torch.tensor([1.0, -1.0], device=dev)[:n_anti, None, None]
+
+    ball_b = type(ball1)(*(leaf[None] for leaf in ball1))
+    jshape = (N,) if D == 2 else (N, 2)
+
+    def first_samples(lo, hi):
+        """The walk keys of pairs [lo, hi), their start points (P, A, N,
+        D), first source samples (P, A, N) and signed gradient directions
+        (P, A, N, D): pair w's draws from kw = key.fold_in(w), each pair's
+        numbers those of its own loop in JAX."""
+        kws = [key.fold_in(w) for w in range(lo, hi)]
+        w = torch.arange(lo, hi, device=dev)[:, None]
+        sg = signs[None]
+        dir_s = unit_sphere_from_u(_stratified_pair_u(
+            _uniform_rows(kws, 0, jshape, dev), w, n_pairs, rot, D), D)
+        r_s, _ = g1.sample_radius_u(ball_b,
+                                    _uniform_rows(kws, 1, (N, 2), dev))
+        if settings.ignore_source:
+            first_src = torch.zeros((len(kws), n_anti, N), device=dev)
+            sgd = torch.zeros((len(kws), n_anti, N, D), device=dev)
+        else:
+            y_vol = pts + sg * (r_s[..., None] * dir_s)[:, None]
+            first_src = norm1 * scene.source_fn(y_vol, *source_args)
+            sgd = (sg * dir_s[:, None]) * (
+                r_s * g1.grad_norm_over_eval(ball_b, r_s))[:, None, :, None]
+        dir_b = unit_sphere_from_u(_stratified_pair_u(
+            _uniform_rows(kws, 2, jshape, dev), w, n_pairs, rot_b, D), D)
+        y_surf = pts + sg * (R1[:, None] * dir_b)[:, None]
+        bgd = (sg * dir_b[:, None]) * (pk_ratio * R1 / b_pdf)[:, None]
+        return [kw.fold_in(3) for kw in kws], y_surf, first_src, bgd, sgd
+
+    per_pass = max(1, _LOCKSTEP_LANES // (n_anti * N))
+    walked = {}          # pair -> (total, first_src, valid, bgd, sgd)
+
+    def walk_pass(lo):
+        """Walk pairs [lo, lo + per_pass) side by side; returns the end."""
+        hi = min(lo + per_pass, n_pairs)
+        counts["passes"] += 1
+        kws, y_surf, first_src, bgd, sgd = first_samples(lo, hi)
+        st = _fresh_state(y_surf,
+                          thr=thr1.expand(first_src.shape).contiguous(),
+                          acc=first_src)
+        total, valid, _ = _walk(scene, greens, settings, st, kws,
+                                source_args, rand_shape=(N,))
+        valid = valid & ~degenerate
+        for j, w in enumerate(range(lo, hi)):
+            walked[w] = (total[j], first_src[j], valid[j], bgd[j], sgd[j])
+        return hi
+
+    sum_sol = torch.zeros(N, device=dev)
+    sum_first = torch.zeros(N, device=dev)
+    sum_grad = torch.zeros((N, D), device=dev)
+    n_sol = torch.zeros(N, dtype=torch.int64, device=dev)
+    next_pair = 0
+    for b0, b1 in _pair_batches(settings, n_pairs):
+        while next_pair < b1:
+            next_pair = walk_pass(next_pair)
+        if settings.use_gradient_control_variates:
+            den = torch.clamp(n_sol, min=1)
+            cv_b, cv_s = sum_sol / den, sum_first / den
+        else:
+            cv_b = cv_s = torch.zeros(N, device=dev)
+        total, first_src, valid, bgd, sgd = (
+            torch.stack(fs) for fs in zip(*(walked.pop(w)
+                                            for w in range(b0, b1))))
+        grad = ((total - first_src - cv_b)[..., None] * bgd
+                + (first_src - cv_s)[..., None] * sgd)   # (G, A, N, D)
+        vf = valid.to(torch.float32)
+        sum_sol = sum_sol + torch.sum(vf * total, dim=(0, 1))
+        sum_first = sum_first + torch.sum(vf * first_src, dim=(0, 1))
+        n_sol = n_sol + torch.sum(valid, dim=(0, 1))
+        sum_grad = sum_grad + torch.sum(vf[..., None] * grad, dim=(0, 1))
+    den = torch.clamp(n_sol, min=1)
+    p = sum_sol / den
+    grad = sum_grad / den[..., None]
+    if mask_invalid:
+        p = torch.where(degenerate, 0.0, p)
+        grad = torch.where(degenerate[..., None], 0.0, grad)
+    return p, grad, n_sol.to(torch.int32)
+
+
 def estimate_solution_and_gradient(scene: WostScene, settings: WalkSettings,
                                    pts, key, n_walks: Optional[int] = None,
                                    mask_invalid: bool = True,
                                    source_args=()):
-    """Solution and gradient at interior pts (N, D) (solver.py:588-629)
-    on the executor settings.algo names: the generation executor ("gen",
-    wost/gen.py) or the walker pool ("pool", wost/pool.py). Returns
-    (p, grad (N, D), n_valid). Each executor checks the settings
-    (check_supported)."""
-    if settings.algo == "pool":
+    """Solution and gradient at interior pts (N, D), routed as
+    solver.py:612-629 routes them: under the fast RNG, an adaptive run
+    (adaptive_walks > 0 under "pool" or "gen") and algo "pool" go to the
+    walker pool (wost/pool.py), algo "gen" to the generation executor
+    (wost/gen.py); everything else, algo "lockstep" or any algo with
+    fast_rng=False, to the lockstep executor (_lockstep_gradient).
+    Returns (p, grad (N, D), n_valid (N,) int32)."""
+    kw = dict(n_walks=n_walks, mask_invalid=mask_invalid,
+              source_args=source_args)
+    if settings.fast_rng and (settings.algo == "pool" or (
+            settings.algo == "gen" and settings.adaptive_walks > 0.0)):
         from .pool import estimate_solution_and_gradient_pool as est
-    else:
+    elif settings.fast_rng and settings.algo == "gen":
         from .gen import estimate_solution_and_gradient_gen as est
-    return est(scene, settings, pts, key, n_walks=n_walks,
-               mask_invalid=mask_invalid, source_args=source_args)
+    else:
+        est = _lockstep_gradient
+    return est(scene, settings, pts, key, **kw)

@@ -1,8 +1,8 @@
 """The fresh-batch phase fit (`_adam_fit_single`, fit_mode="xla") of the
 port against the JAX package's, on the CPU, through the JAX-replay key:
 each knob (grad_clip, param_ema, fit_plateau, loss_trace, the cosine and
-tail lr schedules), an early stop that fires, ls_head 0 and 8, and the
-relu, elu and tanh nets with their initializations (normal std 0.1 in 2D,
+tail lr schedules), an early stop that fires, ls_head 0 and 8,
+fit_ensemble 2 (`_adam_fit`), and the relu, elu and tanh nets with their initializations (normal std 0.1 in 2D,
 1.0 in 3D). Tiny nets: 2 hidden layers of 16, 64-point batches, 30 to 70
 iterations of the source fit.
 
@@ -79,6 +79,10 @@ CASES = {
     # leaves at the next stop check
     "early_stop": ("taylorgreen", dict(lr=1e-3, early_stop_loss=0.2530),
                    dict(loss_trace=1, ls_head=0, max_n_iters=70)),
+    # two fits from one start on key.fold_in(0x5EED + j), averaged
+    # (JAX's _adam_fit): the stats' iters of the first, the mean loss
+    "ensemble2": ("taylorgreen", {}, dict(fit_ensemble=2, ls_head=0,
+                                          max_n_iters=30)),
     "relu2d": ("taylorgreen", dict(nonlinearity="relu"),
                dict(ls_head=0, max_n_iters=30)),
     # ls_head 0: on this elu net two eigenvalues of the head's normal
@@ -168,3 +172,32 @@ def test_fused_fit_refuses_non_sine_nets():
                  [(2, 4, 2), (2, 4, 2, 2), (2, 4, 2), (2, 4, 2), (2, 4)])
     with pytest.raises(NotImplementedError, match="tanh"):
         fitkernel.fused_adam_fit(params, tf.siren_cfg, pool, 3, 1e-3)
+
+
+def test_fit_ensemble_averages_folded_fits():
+    """fit_ensemble 2 on the fused fit (its plain twin on the CPU), the
+    contract of tests/test_sim.py:146-150: the ensemble's parameters are
+    the mean of the two single fits on key.fold_in(0x5EED + j), leaf by
+    leaf, and differ from either; its stats carry the single fit's
+    executor and iterations and the mean loss."""
+    tf = tfluid.NeuralFluid(dataclasses.replace(t_get_scene("taylorgreen"),
+                                                **NET),
+                            device="cpu", max_n_iters=20, fit_pool=4,
+                            fit_ensemble=2, **SIZES)
+    state = tf.init_state(0)
+    batches = tfluid._SourceBatches(tf, tf.scene.bdry_eps, 0)
+    key = JaxKey.from_seed(3)
+    with torch.no_grad():
+        pe, se = tfluid._adam_fit(tf, state.params, key, batches)
+        singles = [tfluid._adam_fit_single(tf, state.params,
+                                           key.fold_in(0x5EED + j), batches)
+                   for j in range(2)]
+    (p1, s1), (p2, s2) = singles
+    for e, a, b in zip(params_np(pe), params_np(p1), params_np(p2)):
+        np.testing.assert_array_equal(e, (a + b) / 2.0)
+        assert not np.array_equal(e, a)
+    assert se.executor == s1.executor == "plain twin"
+    assert se.iters == s1.iters == 20
+    np.testing.assert_allclose(float(se.loss),
+                               (float(s1.loss) + float(s2.loss)) / 2,
+                               rtol=1e-6)

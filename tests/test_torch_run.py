@@ -119,21 +119,45 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
                   "1"], "adaptive_walks", id="argv3-pool"),
     (["taylorgreen", "--fit_ensemble", "2"], "fit_ensemble"),
     (["taylorgreen", "--walk_algo", "lockstep"], "lockstep"),
-    pytest.param(["smoke", "--adaptive_walks", "1"], "Do not port",
+    pytest.param(["smoke", "--adaptive_walks", "1"], "adaptive_walks",
                  id="argv6-Yukawa"),
 ])
-def test_unported_raise_before_any_file(tmp_path, argv, name):
-    """(f) Each unported flag raises NotImplementedError naming
-    it, and leaves no experiment directory. The lockstep gradient launch
-    and adaptive allocation are in ROADMAP's "Do not port" list, under
-    every projection that walks (the cases with the ids of the flags
-    they replaced: --projection bvc, --walk_algo pool, --absorption 0,
-    --mesh and --wost_source net are ported, and their cases pair them
-    with a flag that is not)."""
+def test_unported_raise_before_any_file(tmp_path, monkeypatch, argv,
+                                        name):
+    """(f) The flags once refused (the lockstep gradient, adaptive
+    allocation, fit_ensemble) run the port's CLI at CLI_TINY's sizes,
+    alone and beside the flags whose ids these cases keep (--projection
+    bvc, --mesh, --wost_source net, --walk_algo pool, smoke's 3D walk):
+    the flags reach the NeuralFluid, two checkpoints are written, finite,
+    and the config holds each flag (`name` names the setting once
+    refused)."""
+    made = []
+    make = trun.make_fluid
+
+    def capture(args):
+        made.append(make(args))
+        return made[-1]
+    monkeypatch.setattr(trun, "make_fluid", capture)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=name):
-        trun.main(argv + ["--out", str(out), "--device", "cpu"])
-    assert not out.exists()
+    trun.main(argv + CLI_TINY + ["--out", str(out), "--device", "cpu"])
+    fluid, = made
+    flags = dict(zip(argv[1::2], argv[2::2]))
+    assert fluid.walk_settings.algo == flags.get("--walk_algo", "gen")
+    assert fluid.walk_settings.adaptive_walks == float(
+        flags.get("--adaptive_walks", 0))
+    assert fluid.fit_ensemble == int(flags.get("--fit_ensemble", 1))
+    exp = out / argv[0]
+    steps = sorted(p.name for p in (exp / "model").iterdir())
+    assert steps == ["ckpt_step_t000.npz", "ckpt_step_t001.npz"]
+    with np.load(exp / "model" / steps[-1]) as z:
+        assert all(np.all(np.isfinite(z[k])) for k in z.files
+                   if k.startswith("leaf_"))
+    cfg = json.loads((exp / "config.json").read_text())
+    assert f"--{name}" in flags or name in flags.values()
+    for flag, value in flags.items():
+        got = cfg[flag[2:]]
+        assert str(got) == value or (not isinstance(got, str)
+                                     and got == float(value)), (flag, got)
 
 
 @pytest.mark.parametrize("extra", [["--projection", "bvc"],

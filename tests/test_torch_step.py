@@ -105,20 +105,33 @@ def test_final_state(runs):
                                   dict(wost_source="net",
                                        walk_settings=WalkSettings(
                                            algo="pool", adaptive_walks=1.0))])
-def test_unported_flags_raise(over):
-    """Flags not ported raise, naming themselves (adv_ref,
-    fit_mode="xla", grad_clip and param_ema are ported: see
-    tests/test_torch_fit_single.py and tests/test_torch_run.py; the
-    spectral, bem and bvc projections, the pool and the mid-walk
-    Tikhonov: tests/test_torch_spectral.py, test_torch_bem.py,
-    test_torch_bvc.py and test_torch_walk_family.py). The lockstep
-    gradient launch (algo "lockstep", and fast_rng=False, which routes
-    there) and adaptive allocation are in ROADMAP's "Do not port"
-    list. A points mesh and wost_source="net" are ported
-    (tests/test_torch_mesh.py, test_torch_wost_net.py): their cases pair
-    them with a setting that is not."""
+def test_unported_flags_raise(over, monkeypatch):
+    """The flags once refused run a tiny add_source + step at TINY sizes:
+    fit_ensemble 2 (two fits a phase, averaged: the fit count doubles),
+    the lockstep gradient (algo "lockstep", and fast_rng=False, which
+    routes there; under wost and under bvc, whose cache walk takes the
+    fluid's executor) and adaptive allocation on the pool (its rounds
+    counted), alone and beside a points mesh or the net source. Each
+    step's P and weights are finite. tests/test_torch_lockstep.py holds
+    these settings against the JAX package."""
+    from nmcfluid_torch.wost import pool, solver
     over = dict(over)
-    scene = over.pop("scene", "taylorgreen")
-    with pytest.raises(NotImplementedError,
-                       match=scene if scene != "taylorgreen" else ""):
-        tfluid.NeuralFluid(t_get_scene(scene), device="cpu", **over)
+    fits = []
+    single = tfluid._adam_fit_single
+
+    def counted(*a, **kw):
+        fits.append(1)
+        return single(*a, **kw)
+    monkeypatch.setattr(tfluid, "_adam_fit_single", counted)
+    solver.counts.update(dict.fromkeys(solver.counts, 0))
+    pool.counts.update(dict.fromkeys(pool.counts, 0))
+    fluid = tfluid.NeuralFluid(t_get_scene("taylorgreen"), device="cpu",
+                               **dict(TINY, **over))
+    state = fluid.step(fluid.add_source(fluid.init_state(0)))
+    assert np.isfinite(float(state.P))
+    assert all(np.all(np.isfinite(a)) for a in params_np(state.params))
+    assert len(fits) == 3 * over.get("fit_ensemble", 1)
+    ws = over.get("walk_settings", WalkSettings())
+    lockstep = ws.algo == "lockstep" or not ws.fast_rng
+    assert (solver.counts["passes"] > 0) == lockstep
+    assert (pool.counts["rounds"] > 0) == (ws.adaptive_walks > 0.0)

@@ -288,3 +288,55 @@ def test_device_defaults_to_the_card(tmp_path):
         t2cyl.main(["--wost", "a", "--bem", "b", "--out",
                     str(tmp_path / "o")])
     assert not (tmp_path / "o").exists()
+
+
+def _numbers(tree):
+    """The leaves of a nested dict/list of JSON values."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _numbers(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _numbers(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("tool", ["walk_roofline", "fit_microbench"])
+def test_card_tools_refuse_without_a_card_and_rehearse(tool, tmp_path):
+    """tools_walk_roofline and tools_fit_microbench measure the card: by
+    default they refuse without one, before writing; with --device cpu
+    they run every item at a tiny size with host times only, every
+    device number and the card "not measured", and write one JSON."""
+    import nmcfluid_torch.tools_fit_microbench as tmicro
+    import nmcfluid_torch.tools_walk_roofline as troof
+    out = tmp_path / "out.json"
+    if tool == "walk_roofline":
+        main = troof.main
+        cpu = ["--device", "cpu", "--points", "256", "--n_walks", "16"]
+        items = ("pool_width", "advance_parts")
+    else:
+        main = tmicro.main
+        cpu = ["--device", "cpu", "--quick", "--n_batch", "256"]
+        items = ("ms_per_iter",)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        main(["--out", str(out)])
+    assert not out.exists()
+    res = main(cpu + ["--out", str(out)])
+    assert json.loads(out.read_text()) == res
+    assert res["card"] == troof.NOT_MEASURED
+    for item in items:
+        for name, row in res[item].items():
+            assert np.isfinite(row["host_ms"]) and row["host_ms"] > 0, name
+            assert row.get("device_ms", troof.NOT_MEASURED) \
+                == troof.NOT_MEASURED, name
+    if tool == "walk_roofline":
+        assert set(res["ceilings"].values()) == {troof.NOT_MEASURED}
+        for algo in ("pool", "gen"):
+            e2e = res["end_to_end"][algo]
+            assert e2e["device_busy_s"] == troof.NOT_MEASURED
+            assert e2e["counts"]["steps"] > 0 and e2e["wall_s"] > 0
+            assert "device_idle_share" not in e2e
+    else:
+        assert res["ms_per_iter"]["adam_fit_single"]["executor"] \
+            == "fresh-batch"
+        assert res["ms_per_iter"]["fit_kernel"]["executor"] == "plain twin"
+    assert all(isinstance(x, (int, float, str, bool)) or x is None
+               for x in _numbers(res))

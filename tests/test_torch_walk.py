@@ -153,14 +153,34 @@ def test_gen_solves_manufactured_problem():
 
 
 def test_gen_unported_settings_raise():
-    """The settings of ROADMAP's "Do not port" list raise (the others are
-    held in tests/test_torch_walk_family.py)."""
+    """The settings once refused run through the router: the lockstep
+    gradient (algo "lockstep", and fast_rng=False, which routes there)
+    and adaptive allocation (on the pool, whether the algo is gen or
+    pool), each meeting the manufactured problem at 400 walks (p atol
+    0.08, grad atol 0.3) with most walks valid; the gen executor itself still refuses the
+    threefry RNG as JAX's does (tests/test_torch_lockstep.py holds these
+    settings against the JAX package)."""
+    from nmcfluid_torch.wost.solver import estimate_solution_and_gradient
     scene = _manufactured("torch")
+    pts = torch.from_numpy(PTS)
+    pstar = np.cos(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1])
+    gstar = np.stack([-KX * np.sin(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1]),
+                      -KX * np.cos(KX * PTS[:, 0]) * np.sin(KX * PTS[:, 1])],
+                     -1)
     for over in (dict(algo="lockstep"), dict(fast_rng=False),
                  dict(adaptive_walks=1.0),
                  dict(algo="pool", adaptive_walks=1.0)):
-        with pytest.raises(NotImplementedError):
-            t_gen(scene, TSettings(**over), torch.from_numpy(PTS), Key(0), 8)
+        p, g, n = estimate_solution_and_gradient(
+            scene, TSettings(**over), pts, Key(0), 400)
+        np.testing.assert_allclose(to_np(p), pstar, atol=0.08,
+                                   err_msg=str(over))
+        np.testing.assert_allclose(to_np(g), gstar, atol=0.3,
+                                   err_msg=str(over))
+        # an adaptive run may stop a point after the first round
+        assert np.all(to_np(n) > (64 if "adaptive_walks" in over else 300)
+                      ), over
+    with pytest.raises(ValueError, match="fast RNG"):
+        t_gen(scene, TSettings(fast_rng=False), pts, Key(0), 8)
 
 
 def test_port_key_walk_error_matches_jax_key():

@@ -589,18 +589,35 @@ def test_harmonic3d_walk_in_the_cube_matches_jax():
 
 
 def test_unported_settings_raise_naming_why():
-    """The lockstep gradient launch and adaptive allocation name ROADMAP's
-    "Do not port" list; 3D boundary data, once refused, runs on a
-    triangle soup (tests/test_torch_mixed3d.py holds it against JAX)."""
+    """The settings once refused run: the lockstep gradient (algo
+    "lockstep", and fast_rng=False, which routes there) and adaptive
+    allocation (on the pool, under algo gen or pool) meet the mixed
+    problem at the JAX tests' size and atol (3000 walks, p 0.06, grad
+    0.15); 3D boundary data, once refused, runs on a triangle soup
+    (tests/test_torch_mixed3d.py holds it against JAX)."""
     lib = LIBS["torch"]
     scene = mixed_scene(lib)
     pts = torch.from_numpy(PTS_D)
+    want = np.stack([-KX * np.sin(KX * PTS_D[:, 0]) * np.cos(KX * PTS_D[:, 1]),
+                     -KX * np.cos(KX * PTS_D[:, 0]) * np.sin(KX * PTS_D[:, 1])],
+                    -1)
+    out = {}
     for over in (dict(algo="lockstep"), dict(fast_rng=False),
                  dict(adaptive_walks=1.0), dict(algo="pool",
                                                 adaptive_walks=1.0)):
-        with pytest.raises(NotImplementedError, match="Do not port"):
-            t_solver.estimate_solution_and_gradient(
-                scene, t_solver.WalkSettings(**over), pts, Key(0), 8)
+        s = t_solver.WalkSettings(ignore_dirichlet=False, walk_step_cap=256,
+                                  pool_step_cap=256, pool_slots=4096, **over)
+        p, g, n = t_solver.estimate_solution_and_gradient(scene, s, pts,
+                                                          Key(2), 3000)
+        np.testing.assert_allclose(to_np(p), to_np(_p_star(lib, pts)),
+                                   atol=0.06, err_msg=str(over))
+        np.testing.assert_allclose(to_np(g), want, atol=0.15,
+                                   err_msg=str(over))
+        assert np.all(to_np(n) > 500), over
+        out[over.get("algo", "gen"), over.get("fast_rng", True)] = (p, g, n)
+    # adaptive allocation runs on the pool whether the algo is gen or pool
+    for a, b in zip(out["gen", True], out["pool", True]):
+        assert torch.equal(a, b)
     box = build_triangles(*box_tris((-1.0,) * 3, (1.0,) * 3))
     s3 = t_solver.WostScene(dim=3, neumann=box, absorption=30.0,
                             source_fn=lambda x: x[..., 0],
