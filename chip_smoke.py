@@ -42,8 +42,8 @@
    segment soup, the ramp kept, one step whose walk is cut to one
    65,536-point chunk as karman's, a 1000^2 grid; its fit check
    needs pool points with an off-diagonal A and holds the float64 twin at
-   JPIPE_ATOL64, its small-input walk nine points in ten at the gen
-   tolerance), then the 3D scenes in the closed cube:
+   ATOL64, as karman3d's, its small-input walk nine points in ten at the
+   gen tolerance), then the 3D scenes in the closed cube:
    smoke (5 x 64), karman3d (2 x 128), smoke_obs and
    vortex_collide (5 x 64), one step each, with an 80^3 divergence grid
    and 256^2 pressure points; all with 500 walks, 10,000-iteration fits
@@ -76,7 +76,14 @@
    inputs, then one Taylor-Green step under bvc at full width from the
    path's add_source state: one fit-kernel launch a fit, the cache walk
    and the splat timed apart by CUDA events (bvc_walk, bvc_splat), peak
-   memory and the TG error bound.
+   memory and the TG error bound; then karman's: the small input card
+   against CPU and one step under bvc at full width from karman's
+   add_source state (projection_phase, as step 8: the shipped net,
+   128^2 batches, 10,000-iteration fits, 500 walks, the cache walk in
+   generations of BVC_GROUP_PAIRS pairs; one fit-kernel launch a fit, the
+   stage times bvc_walk, bvc_splat and the fits, the cache walk's
+   generations and steps, the energy ratio within karman's band) and the
+   seconds it adds.
 10. The soups-and-sources phase (soups_phase): (a) every query of
    geometry/queries3d.py on the card against the CPU, on the cube and the
    reflex soup; (b) tests/test_mixed3d.py's mixed problem and
@@ -126,9 +133,9 @@ lines are the kernel report ({"kernels": [...]}, one entry per kernel with
 its launches, error, times and bound; the fit kernel has one entry per
 path: taylorgreen, karman, jpipe, smoke, karman3d, smoke_obs,
 vortex_collide, the CLI's two runs, the nine projection paths,
-Taylor-Green under bvc, smoke on the cube soup, Taylor-Green under the
-net source, the oracle floor and Taylor-Green's fit under fit_ensemble 2,
-two launches a fit),
+Taylor-Green and karman under bvc, smoke on the cube soup, Taylor-Green
+under the net source, the oracle floor and Taylor-Green's fit under
+fit_ensemble 2, two launches a fit),
 the card's name and power limit as nvidia-smi gives them, and {"ok":
 true, "device": {...}}.
 """
@@ -439,9 +446,10 @@ def _fit_entry(path, fluid, launches, per_frame, err, kernel_ms, plain_ms):
         "library_ms": None}
 
 
-def _walk_report(wost_s):
+def _walk_report(wost_s, stage="wost_solve"):
     """The walk's generations, steps and lanes since the counts were
-    zeroed, and the solve's wall-clock split by step; zeroes them."""
+    zeroed, and the solve's (`stage`'s) seconds split by step; zeroes
+    them."""
     from nmcfluid_torch.wost import gen
     c = dict(gen.counts)
     gen.counts.update(dict.fromkeys(gen.counts, 0))
@@ -449,7 +457,7 @@ def _walk_report(wost_s):
             f"({c['steps'] / max(1, c['generations']):.1f} a generation), "
             f"{c['lane_steps'] / max(1, c['steps']):.0f} active lanes a "
             f"step on average, {wost_s * 1e3 / max(1, c['steps']):.3f} ms "
-            f"of wost_solve a step")
+            f"of {stage} a step")
 
 
 def _check_finite(state, projection):
@@ -555,14 +563,19 @@ def taylor_green_phase(cuda_build):
                        kernel_ms, plain_ms), step1, errors, source)
 
 
-# jpipe's fits against the float64 twin: on jpipe's pool seed 0 float32
-# itself leaves float64 by 1.7e-5 (the f32 twin; the kernel 1.3e-5), above
-# the 1e-5 that holds the kernel to its f32 twin (the kernel reads up to
-# 4.3e-6 there), which is the check that tells the faulty fits: TF32
-# weight-gradient operands 1.1e-5 to 1.7e-3, one partial row left out
-# 3.7e-3 and up, fast sincos 7.7e-5 on seed 0 (`python -m
-# nmcfluid_torch.sim.fitprobe --scene jpipe --seeds 4 --faults`, PERF.md §6)
-JPIPE_ATOL64 = 5e-5
+# The 2 x 128 nets' fits against the float64 twin: float32 itself (the
+# f32 twin) leaves float64 by up to 2.0e-5 over keys 0-11 of the initial
+# weights, and the kernel by up to 1.4e-5 (karman), 1.9e-5 (jpipe) and
+# 1.8e-5 (karman3d); each bound is 1.25 x the kernel's most, rounded up
+# at the second digit (sim/fitprobe.py SMOKE_ATOL, with the bound against
+# the f32 twin, 1.2e-5 on karman3d, where the kernel reads up to 9.5e-6).
+# At these bounds TF32 weight-gradient operands read 11 x them and more
+# and one partial row left out 389 x at every key; fast sincos reads
+# within the kernel's own spread (0.1-0.46 x the bounds at its least)
+# and fails the check at 3 (jpipe), 8 (karman) and 3 (karman3d) of 12
+# keys (`python -m nmcfluid_torch.sim.fitprobe --key_sweep 12`, PERF.md
+# section 6).
+ATOL64 = {"karman": 1.8e-5, "jpipe": 2.4e-5, "karman3d": 2.3e-5}
 
 
 # The JAX package's readings of one Taylor-Green step from the port's
@@ -575,31 +588,37 @@ JAX_STAGE_READINGS = {"before": 2.7016533e-4,
                       "project_one_chunk": (3.0735043e-4, 3.0369643e-4)}
 
 
-def tg_stage_check(fluid):
+def tg_stage_readings(fluid, key):
     """One Taylor-Green step from docs/tg_stage_ckpt on the card, stage by
     stage (sim/stageprobe.py::probe_step, light: the advection fit, one
-    chunk's walk, the projection fit on it), held to the JAX package's
-    step from the same state: the error the advection fit adds and the
-    error the whole step adds each within [0.5, 2] x the JAX package's
-    mean over its two keys. The port's 50-frame Taylor-Green curves once
-    read as its step adding 3-6 x JAX's error a frame; from the same state
-    it adds what JAX's adds (PERF.md §2), and a step that added 3 x would
-    fail here."""
+    chunk's walk, the projection fit on it) on `key`: the error the
+    advection fit adds and the error the whole step adds, each over the
+    JAX package's mean over its two keys from the same state. Raises if
+    the checkpoint's error before the step is not the JAX package's."""
     from nmcfluid_torch.sim import stageprobe
     from nmcfluid_torch.utils.checkpoint import load_ckpt
-    from nmcfluid_torch.utils.keys import Key
     params, t = load_ckpt("docs/tg_stage_ckpt", fluid.init_state(0).params,
                           10)
-    res, _ = stageprobe.probe_step(fluid, params, t, Key(0), light=True)
+    res, _ = stageprobe.probe_step(fluid, params, t, key, light=True)
     before = res["tg_err"]["before"]
     if abs(before - JAX_STAGE_READINGS["before"]) > 1e-3 * before:
         raise AssertionError(f"TG stage check: the checkpoint reads {before}"
                              f", the JAX package {JAX_STAGE_READINGS['before']}")
     got = {"after_advect": res["tg_err"]["after_advect"] - before,
            "project_one_chunk": res["project_one_chunk"]["tg_err"] - before}
-    for name, delta in got.items():
-        jax_delta = sum(v - JAX_STAGE_READINGS["before"]
-                        for v in JAX_STAGE_READINGS[name]) / 2
+    return {name: (delta, sum(v - JAX_STAGE_READINGS["before"]
+                              for v in JAX_STAGE_READINGS[name]) / 2)
+            for name, delta in got.items()}
+
+
+def tg_stage_check(fluid):
+    """tg_stage_readings on Key(0): each added error within [0.5, 2] x the
+    JAX package's. The port's 50-frame Taylor-Green curves once read as
+    its step adding 3-6 x JAX's error a frame; from the same state it adds
+    what JAX's adds (PERF.md §2), and a step that added 3 x would fail
+    here."""
+    from nmcfluid_torch.utils.keys import Key
+    for name, (delta, jax_delta) in tg_stage_readings(fluid, Key(0)).items():
         print(f"TG stage check, {name}: the port's step adds {delta:.4e} to "
               f"the error, the JAX package's {jax_delta:.4e} "
               f"({delta / jax_delta:.2f} x; band [0.5, 2])", flush=True)
@@ -621,11 +640,9 @@ def tg_stage_check(fluid):
 # jpipe's bounds are karman's: the JAX package's run reads an error of
 # 0.018 and a ratio of 0.96 after a step, the untrained network 1.01 and
 # 0.017, the zero network 1 and 0 (`port_bounds.py jpipe`).
-# The atols: the smoke family's 1e-3 (sim/fitprobe.py); 1e-5 for the
-# 2 x 128 nets, on whose own pools the f32 twin itself leaves up to 5.9e-6
-# of the float64 twin and the kernel up to 5.5e-6, while faulty fits read
-# 1.8e-5 and more (`python -m nmcfluid_torch.sim.fitprobe --scene NAME
-# --faults`, PERF.md).
+# The atols: the smoke family's 1e-3 (sim/fitprobe.py); for the 2 x 128
+# nets sim/fitprobe.py's SMOKE_ATOL against the f32 twin (1e-5, karman3d
+# 1.2e-5; see ATOL64).
 # The last field is the pressure cloud's side (None: the scene's): karman's
 # shipped step walks 512^2 points in four 65,536-point chunks, ~244 s of
 # walk tail, so its step here walks one such chunk (256^2) to keep the
@@ -639,7 +656,7 @@ PATHS = (
     ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
     ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
     ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
-    ("karman3d", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
+    ("karman3d", 1, 1.2e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
     ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
     ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
 )
@@ -703,7 +720,7 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band,
     err, kernel_ms, plain_ms = check_fit_kernel(
         fluid, fk, tfluid, fluid.init_state(1).params, atol,
         need_offdiag=name == "jpipe",
-        atol64=JPIPE_ATOL64 if name == "jpipe" else None)
+        atol64=ATOL64.get(name))
     check_small_input(tfluid, scene, Key, scene.eps_after_source(
         scene.bdry_eps), div_resolution=64 if scene.dim == 2 else 24)
 
@@ -1081,7 +1098,8 @@ def bem_split(fluid, repeats=3):
     return out
 
 
-def projection_phase(name, projection, source, entry, band):
+def projection_phase(name, projection, source, entry, band,
+                     walk_settings=None):
     """One step of a path under a deterministic projection, from the
     path's own add_source state (the source fit does not depend on the
     projection), at full width: the small input on the card against the
@@ -1089,8 +1107,10 @@ def projection_phase(name, projection, source, entry, band):
     precompute apart from its solve), peak memory, a finite P, and the
     path's band: the TG velocity error under 5e-3 in Taylor-Green, else
     0.5 mean|u|^2 on the free region within `band` x the source's.
-    Returns the fit kernel's report entry on this path (the kernel's
-    measurements at the path's shapes, this path's launches)."""
+    Under bvc the cache walk's generations and steps are printed, and
+    `walk_settings` (None: the scene's) sets its executor. Returns the fit
+    kernel's report entry on this path (the kernel's measurements at the
+    path's shapes, this path's launches)."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -1101,10 +1121,12 @@ def projection_phase(name, projection, source, entry, band):
 
     scene = get_scene(name)
     errs = check_small_projection(tfluid, scene, projection, Key)
-    fluid = tfluid.NeuralFluid(scene, device="cuda", projection=projection)
+    fluid = tfluid.NeuralFluid(scene, device="cuda", projection=projection,
+                               walk_settings=walk_settings)
     state = source._replace(eps=scene.eps_after_source(source.eps))
     fluid.profile, fluid.stage_times = True, {}
     fk.launches = 0
+    _walk_report(0.0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = fluid.step(state)
@@ -1132,10 +1154,16 @@ def projection_phase(name, projection, source, entry, band):
         reading = (f"0.5 mean|u|^2 {ratio:.4f} x the source's (band "
                    f"{band})")
         ok = band[0] <= ratio <= band[1]
+    walk = (f"; cache {_walk_report(stages['bvc_walk'], 'bvc_walk')} (B"
+            f" = {fluid._bvc.n_boundary} cache points x "
+            f"{fluid.walk_settings.n_walks} walks, "
+            f"{fluid.walk_settings.gen_group_pairs} pairs a generation)"
+            if projection == "bvc" else "")
     print(f"{name} {projection} step: {wall:.2f} s, stages "
           f"{json.dumps(stages)}, fit-kernel launches {launches}, P "
           f"{float(state.P):.6e}, {reading}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{walk}",
+          flush=True)
     if not ok:
         raise AssertionError(f"{name} {projection}: {reading}")
     if projection == "bem":
@@ -1215,6 +1243,7 @@ def _mixed_scenes(device):
 
 # the JAX tests' points and atol for each problem: the solution walk's
 # points and atol, the gradient executors' points and (p, grad p) atol
+# (their walks: MIXED_WALKS)
 MIXED_CASES = {
     "mixed": ([[1.0, 0.35], [0.5, 0.7], [1.5, 1.65], [0.3, 1.2]], 0.05,
               [[1.0, 0.35], [0.5, 0.7], [1.5, 1.65], [0.3, 1.2]], 0.06,
@@ -1222,12 +1251,18 @@ MIXED_CASES = {
     "barrier": ([[0.3, 1.0], [0.55, 0.5], [1.1, 1.0], [1.6, 1.4]], 0.08,
                 [[0.4, 1.0], [1.3, 0.9]], 0.08, 0.2),
 }
+# walks of (the solution, the gradients) for each problem: the JAX tests'
+# 3000 unless a key of keys 0-11 read over 80% of an atol there; these are
+# tests/test_torch_walk_family.py's problems, keys and walks, whose readings
+# the card's equal (port_key_audit.py; the barrier's gradient has a heavy
+# tail: 102% of its atol at 3000 walks)
+MIXED_WALKS = {"mixed": (3000, 10000), "barrier": (10000, 10000)}
 
 
 def _mixed_boundary_checks(Key):
-    """(b): each problem on the card with estimate_solution (3000 walks)
-    and with the gen and pool gradients (3000 walks; 256 pairs a
-    generation and 4096 pool slots, which only reorder the work), held to
+    """(b): each problem on the card with estimate_solution and with the
+    gen and pool gradients (MIXED_WALKS; 2048 pairs a generation and 4096
+    pool slots, which only reorder the work), held to
     the manufactured solution at the JAX tests' atol; then a small input
     (16 points, 64 walks) on the card against the CPU, nine points in ten
     at the gen tolerance and the rest within the walk's noise (the walls
@@ -1241,22 +1276,23 @@ def _mixed_boundary_checks(Key):
         scene, p_star, g_star = scenes["cuda"][name]
         base = WalkSettings(walk_step_cap=256, ignore_dirichlet=False,
                             solve_double_sided=name == "barrier",
-                            gen_group_pairs=256, pool_slots=4096,
+                            gen_group_pairs=2048, pool_slots=4096,
                             gen_step_cap=256, pool_step_cap=256)
+        walks_s, walks_g = MIXED_WALKS[name]
         x = torch.tensor(pts, device="cuda")
         t0 = time.perf_counter()
-        p, n, _ = estimate_solution(scene, base, x, Key(0), 3000)
+        p, n, _ = estimate_solution(scene, base, x, Key(0), walks_s)
         _sync()
         secs[f"{name} solution"] = time.perf_counter() - t0
         torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_s)
-        if not bool((n > 2000).all()):
+        if not bool((n > 2 * walks_s // 3).all()):
             raise AssertionError(f"{name}: valid walks {n.tolist()}")
         x = torch.tensor(pts_g, device="cuda")
         for algo in ("gen", "pool"):
             s = dataclasses.replace(base, algo=algo)
             t0 = time.perf_counter()
             p, g, n = estimate_solution_and_gradient(scene, s, x, Key(2),
-                                                     3000)
+                                                     walks_g)
             _sync()
             secs[f"{name} {algo}"] = time.perf_counter() - t0
             torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_p)
@@ -1397,14 +1433,32 @@ def _pool_against_gen(tg_source, Key):
     return secs["gen"], secs["pool"], c["trips"], c["steps"]
 
 
-def walks_phase(tg_source, entries):
+# Pairs a generation of karman's bvc cache walk. The gen executor runs
+# its 250 pairs a point in generations of gen_group_pairs (4), each as
+# long as its longest walk: karman's ~106 steps a generation at 9-11 ms
+# of host time a step, whatever the points, so 63 generations of the
+# 4,096 cache points (32,768 lanes each) took 56-58 s, as long as the
+# wost step's 63 generations of a 65,536-point chunk. 64 pairs give a
+# generation the wost chunk's 524,288 lanes. The walks are the same
+# (each pair's streams are keyed by its index) and so is the cached
+# solution, up to the order of the float sums (the control variates'
+# warm-up, which the group rounds up, enters the gradient only, which the
+# bvc cache does not keep; tests/test_torch_bvc.py).
+BVC_GROUP_PAIRS = 64
+
+
+def walks_phase(sources, entries):
     """The walk family on the card: (a) pool against gen, (b) the mixed
     boundaries, (c) an image-driven scene, (d) one Taylor-Green step under
     bvc at full width from TG's add_source state (one fit-kernel launch a
     fit, bvc_walk and bvc_splat apart, peak memory, the TG error under
-    5e-3 as in the projections phase), each bvc solve first held card
-    against CPU on a small input (TG and karman). Returns the fit kernel's
-    report entry on the bvc path."""
+    5e-3 as in the projections phase), then one karman step under bvc at
+    full width from karman's add_source state (projection_phase: the
+    shipped net, 128^2 batches, 10,000-iteration fits, 500 walks; one
+    fit-kernel launch a fit, the stage times, the energy ratio within
+    karman's band), each bvc solve first held card against CPU on a small
+    input; karman's cache walk in generations of BVC_GROUP_PAIRS pairs.
+    Returns the fit kernel's report entries on the two bvc paths."""
     from nmcfluid_torch.scenes import get_scene
     from nmcfluid_torch.sim import fitkernel as fk
     from nmcfluid_torch.sim import fluid as tfluid
@@ -1413,14 +1467,15 @@ def walks_phase(tg_source, entries):
     from nmcfluid_torch.utils.keys import Key
 
     t_phase = time.perf_counter()
+    tg_source = sources["taylorgreen"]
     fk.launches = 0
     _pool_against_gen(tg_source, Key)
     _mixed_boundary_checks(Key)
     _image_scene_check(Key)
     if fk.launches:
         raise AssertionError("the walk checks launched the fit kernel")
-    errs = {n: check_small_projection(tfluid, get_scene(n), "bvc", Key)
-            for n in ("taylorgreen", "karman")}
+    err_small = check_small_projection(tfluid, get_scene("taylorgreen"),
+                                       "bvc", Key)
     # (d) TG under bvc at full width
     fluid = tfluid.NeuralFluid(get_scene("taylorgreen"), device="cuda",
                                projection="bvc")
@@ -1448,11 +1503,19 @@ def walks_phase(tg_source, entries):
     if not err_tg < 5e-3:
         raise AssertionError(f"taylorgreen bvc: TG velocity error {err_tg}")
     entry = next(e for e in entries if e["path"] == "taylorgreen")
-    out = dict(entry, path="taylorgreen bvc", launches=launches,
-               launches_per_frame=launches,
-               projection_err=errs["taylorgreen"])
+    out = [dict(entry, path="taylorgreen bvc", launches=launches,
+                launches_per_frame=launches, projection_err=err_small)]
     del fluid, state
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    band = next(path[5] for path in PATHS if path[0] == "karman")
+    out.append(projection_phase(
+        "karman", "bvc", sources["karman"],
+        next(e for e in entries if e["path"] == "karman"), band,
+        walk_settings=get_scene("karman").walk_settings(
+            gen_group_pairs=BVC_GROUP_PAIRS)))
+    print(f"karman bvc: the small input and the full-width step added "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"walks phase done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
@@ -1528,6 +1591,9 @@ MIXED3D_CASES = {
                  [1.6, 1.4, 0.6]], 0.1, [[0.4, 1.0, 1.0], [1.3, 0.9, 1.1]],
                 0.1, 0.3),
 }
+# the gradients' walks: tests/test_torch_mixed3d.py's GRADIENT_WALKS for
+# the same problems and keys (port_key_audit.py, CHANGES.md)
+MIXED3D_GRADIENT_WALKS = {"mixed": 4000, "barrier": 6000}
 
 
 def _mixed3d_scenes(device):
@@ -1588,8 +1654,8 @@ def _mixed3d_scenes(device):
 
 def _mixed3d_checks(Key):
     """(b): each 3D problem on the card under estimate_solution (3000
-    walks) and the gen and pool gradients (3000 walks; 1024 pairs a
-    generation, 4096 pool slots and 256-step caps, as the 2D checks),
+    walks) and the gen and pool gradients (MIXED3D_GRADIENT_WALKS; 1024
+    pairs a generation, 4096 pool slots and 256-step caps, as the 2D checks),
     held to the manufactured solution at the JAX tests' atol. Returns
     seconds by check."""
     import dataclasses
@@ -1612,15 +1678,16 @@ def _mixed3d_checks(Key):
         if not bool((n > 2000).all()):
             raise AssertionError(f"3D {name}: valid walks {n.tolist()}")
         x = torch.tensor(pts_g, device="cuda")
+        walks = MIXED3D_GRADIENT_WALKS[name]
         for algo in ("gen", "pool"):
             t0 = time.perf_counter()
             p, g, n = estimate_solution_and_gradient(
-                scene, dataclasses.replace(base, algo=algo), x, Key(2), 3000)
+                scene, dataclasses.replace(base, algo=algo), x, Key(2), walks)
             _sync()
             secs[f"{name} {algo}"] = time.perf_counter() - t0
             torch.testing.assert_close(p, p_star(x), rtol=0, atol=atol_p)
             torch.testing.assert_close(g, g_star(x), rtol=0, atol=atol_g)
-            if not bool((n > 2000).all()):
+            if not bool((n > 2 * walks // 3).all()):
                 raise AssertionError(f"3D {name} {algo}: valid walks "
                                      f"{n.tolist()}")
     print("3D boundary data on triangle soups, on the card: the mixed "
@@ -2420,7 +2487,7 @@ def main():
             name, projection, sources[name], entry, bands.get(name)))
     print(f"projections phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    fit_entries.append(walks_phase(sources["taylorgreen"], fit_entries))
+    fit_entries += walks_phase(sources, fit_entries)
     fit_entries += soups_phase(sources, fit_entries, tg_errors[1])
     fit_entries.append(baselines_phase(tg_entry))
     fit_entries.append(executors_phase(sources["taylorgreen"]))

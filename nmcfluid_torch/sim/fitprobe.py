@@ -3,6 +3,7 @@
     python -m nmcfluid_torch.sim.fitprobe [--shape tg] [--precision]
     python -m nmcfluid_torch.sim.fitprobe --scene karman3d [--seeds 3] \\
         [--faults]
+    python -m nmcfluid_torch.sim.fitprobe --key_sweep 12 [--out F.json]
 
 At one of the wrapper's shape families, on a K-batch pool made from a
 numpy seed:
@@ -20,10 +21,17 @@ numpy seed:
   csrc/fitkernel.cu with one deliberate fault each (FAULTS; built
   together, with cuda_build's flags, into nmcfluid_torch/_build/), so
   that a tolerance can be seen to tell them from the kernel.
+- --key_sweep N reads the fit checks of tests/test_torch_gpu.py and
+  chip_smoke.py whose initial weights come from a key over keys 0..N-1:
+  the kernel, the f32 twin and each of FAULTS against the twin and the
+  float64 twin, and prints the share of each check's bounds the kernel
+  takes at most and each fault at least (key_sweep); their bounds
+  (SHAPES, CYCLING_ATOL, SCENE3D_ATOL, SMOKE_ATOL) are sized from it.
 
 Every number needs a CUDA card; without one the probe exits with an error.
 """
 import argparse
+import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,12 +44,24 @@ from ..utils.keys import Key
 from . import fitkernel as fk
 
 # the wrapper's shape families (D_in, D_out, H, Lh, B) and the atol the
-# card tests hold each to (rtol 2e-4)
+# card tests hold each to (rtol 2e-4). Where a test's initial weights
+# come from a key, its atol is 1.25 x the most the kernel read over keys
+# 0-11 (key_sweep; rounded up at the second digit) where that passes the
+# old atol: karman's 2e-6 and karman3d's 2e-6 were read over by the
+# kernel at 3 and 1 of 12 keys.
 SHAPES = {"tg": ((2, 2, 64, 6, 4096), 1e-3),
-          "karman": ((2, 2, 128, 2, 16384), 2e-6),
+          "karman": ((2, 2, 128, 2, 16384), 5.3e-6),
           "smoke": ((3, 3, 64, 5, 16384), 1e-3),
-          "karman3d": ((3, 3, 128, 2, 16384), 2e-6),
+          "karman3d": ((3, 3, 128, 2, 16384), 2.7e-6),
           "ragged": ((2, 2, 64, 2, 1000), 2e-6)}
+# the same for the card tests' pool-cycling fit and their fits on the 3D
+# scenes' own pools (one atol against the twin and the float64 twin)
+CYCLING_ATOL = 4.2e-6
+SCENE3D_ATOL = {"smoke": 1e-3, "karman3d": 3.1e-5}
+# chip_smoke.py's fit check on the 2 x 128 nets: (atol against the twin,
+# against the float64 twin), sized the same way
+SMOKE_ATOL = {"karman": (1e-5, 1.8e-5), "jpipe": (1e-5, 2.4e-5),
+              "karman3d": (1.2e-5, 2.3e-5)}
 
 
 # name -> edits of csrc/fitkernel.cu, each found there once: faults of the
@@ -92,12 +112,14 @@ def fault_libraries():
 
 
 def make_problem(dev, *, D_in=2, D_out=2, H=64, Lh=2, K=2, B=4096, seed=0,
-                 dtype=torch.float32):
-    """SIREN params from the port's initializer and a pool from numpy with
-    the distributions of tests/test_fitkernel.py::make_problem."""
+                 dtype=torch.float32, key_seed=None):
+    """SIREN params from the port's initializer (Key(key_seed), default
+    Key(seed)) and a pool from numpy's seed with the distributions of
+    tests/test_fitkernel.py::make_problem."""
     cfg = SirenConfig(D_in, D_out, num_hidden_layers=Lh, hidden_features=H)
+    key = Key(seed if key_seed is None else key_seed)
     params = [(W.to(dtype), b.to(dtype))
-              for W, b in init_siren(Key(seed), cfg, dev)]
+              for W, b in init_siren(key, cfg, dev)]
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -220,6 +242,143 @@ def scene_precision(name, dev, seeds, faults=False):
     return out
 
 
+def _excess(fit, ref):
+    """How far `fit` leaves `ref` (lists of tensors) at rtol 2e-4: the 4
+    largest |fit - ref| - 2e-4 |ref| (the atol each element needs, largest
+    first), the largest |fit - ref| and its RMS."""
+    a = torch.cat([t.double().reshape(-1) for t in fit])
+    b = torch.cat([t.double().reshape(-1) for t in ref])
+    d = (a - b).abs()
+    top = torch.topk(d - 2e-4 * b.abs(), 4).values
+    return {"top": [float(v) for v in top], "max_abs": float(d.max()),
+            "rms": float(torch.sqrt(torch.mean(d * d)))}
+
+
+def _sweep_problems(dev):
+    """{check: ((atol, float64 atol or None), make(k) -> (cfg, params,
+    pool, n_iters, lr))}: the fit checks of tests/test_torch_gpu.py and
+    chip_smoke.py whose initial weights come from a key, with that key
+    shifted by k (their pools do not change with k)."""
+    from ..scenes import get_scene
+    from .fluid import NeuralFluid
+    out = {}
+    for i, fam in enumerate(("tg", "karman", "smoke", "karman3d", "ragged")):
+        (D_in, D_out, H, Lh, B), atol = SHAPES[fam]
+
+        def make(k, dims=dict(D_in=D_in, D_out=D_out, H=H, Lh=Lh, B=B)):
+            cfg, params, pool = make_problem(dev, key_seed=k, **dims)
+            return cfg, params, pool, 25, 1e-3
+        out[f"test_kernel_matches_twin_on_card[shape{i}]"] = ((atol, None),
+                                                              make)
+
+    def cycling(k):
+        cfg, params, pool = make_problem(dev, K=2, B=2048, seed=3,
+                                         key_seed=3 + k)
+        x, A, c, tgt, w = pool
+        w = w.clone()
+        w[1] = 0.0
+        lr = 1e-3 * 0.85 ** torch.arange(12, dtype=torch.float32)
+        return cfg, params, (x, A, c, tgt, w), 12, lr
+    out["test_pool_cycling_and_lr_array_on_card"] = ((CYCLING_ATOL, None),
+                                                      cycling)
+    fluids = {n: NeuralFluid(get_scene(n), device=dev)
+              for n in ("smoke", "karman", "jpipe", "karman3d")}
+    for name, atol in SCENE3D_ATOL.items():
+        fluid = fluids[name]
+        rng = np.random.default_rng(4)
+        x = torch.from_numpy(rng.uniform(-1.0, 1.0, (4, fluid.n_batch, 3))
+                             .astype(np.float32)).to(dev)
+        A, c = fluid.velocity_affine(x, eps=fluid.scene.bdry_eps, t=0)
+        pool = (x, A.contiguous(), c.contiguous(),
+                fluid.scene.source_velocity(x, key=Key(5)),
+                fluid.scene.fluid_mask(x).to(torch.float32))
+
+        def scene3d(k, fluid=fluid, pool=pool):
+            return (fluid.siren_cfg, fluid.init_state(2 + k).params, pool,
+                    25, 1e-3)
+        out[f"test_3d_scene_pool_kernel_matches_twin_on_card[{name}]"] = (
+            (atol, atol), scene3d)
+    for name in ("karman", "jpipe", "karman3d"):
+        fluid = fluids[name]
+        for seed in range(3):
+            pool = scene_pool(fluid, 8, seed)
+
+            def smoke_fit(k, fluid=fluid, pool=pool):
+                return (fluid.siren_cfg, fluid.init_state(1 + k).params,
+                        pool, 25, 1e-3)
+            out[f"chip_smoke.py {name} pool seed {seed}"] = (
+                SMOKE_ATOL[name], smoke_fit)
+    return out
+
+
+def key_sweep(dev, keys, faults=True):
+    """{check: {"atol": (atol, float64 atol or None), "keys": {k: {fit:
+    {"twin": _excess against the f32 twin, "f64": _excess against the
+    float64 twin, "loss": the last loss's relative distance from the
+    twin's}}}}} for the checks of _sweep_problems, with their key shifted
+    by each k of `keys`. The fits: the f32 twin ("twin", against float64
+    only), the kernel, and with `faults` each copy of FAULTS. Prints, for
+    each check (chip_smoke.py's over its three pool seeds), the largest
+    share of its bounds the kernel takes over the keys, and for each fault
+    the least share and at how many keys the check fails it."""
+    libs = fault_libraries() if faults else {}
+    out = {}
+    for check, (atol, make) in _sweep_problems(dev).items():
+        rows = {}
+        for k in keys:
+            cfg, params, pool, n, lr = make(k)
+            p_r, l_r = fk.reference_adam_fit(params, cfg, pool, n, lr)
+            p_d, _ = fk.reference_adam_fit(
+                [(W.double(), b.double()) for W, b in params], cfg,
+                tuple(t.double() for t in pool), n, lr)
+            flat = lambda p: [t for pair in p for t in pair]
+            twin, ref = flat(p_r), flat(p_d)
+            K, B, D_in, D_out, H, Lh = fk._shapes(params, pool)
+            plan = fk.fit_plan(D_in, D_out, H, Lh, B, K, n, fk._sm_count(dev))
+            fits = {"kernel": fk.run_plan(plan, params, pool, lr)}
+            for name, lib in libs.items():
+                fits[name] = fk.run_plan(plan, params, pool, lr, lib=lib)
+            row = {"twin": {"f64": _excess(twin, ref)}}
+            for name, (p, loss) in fits.items():
+                row[name] = {"twin": _excess(flat(p), twin),
+                             "f64": _excess(flat(p), ref),
+                             "loss": abs(float(loss) - float(l_r))
+                             / max(abs(float(l_r)), 1e-30)}
+            rows[k] = row
+        out[check] = {"atol": atol, "keys": rows}
+    for group, runs in sweep_shares(out).items():
+        print(f"{group}: " + "; ".join(
+            f"{fit} {'most' if fit == 'kernel' else 'least'} share "
+            f"{min(sh) if fit != 'kernel' else max(sh):.2f}"
+            + ("" if fit == "kernel"
+               else f", failed at {sum(s > 1.0 for s in sh)}/{len(sh)} keys")
+            for fit, sh in runs.items()), flush=True)
+    return out
+
+
+def sweep_shares(res):
+    """{check: {fit: [the share of its bounds the fit takes, a key]}} from
+    key_sweep's result, chip_smoke.py's pool seeds as one check (the
+    largest share over them): the atol each element needs against the
+    twin, and against the float64 twin where the check holds one, over
+    the check's atol."""
+    out = {}
+    for check, v in res.items():
+        group = check.split(" pool seed")[0]
+        bt, bd = v["atol"]
+        for k, row in v["keys"].items():
+            for fit, r in row.items():
+                if fit == "twin":
+                    continue
+                share = r["twin"]["top"][0] / bt
+                if bd is not None:
+                    share = max(share, r["f64"]["top"][0] / bd)
+                sh = out.setdefault(group, {}).setdefault(fit, {})
+                sh[k] = max(sh.get(k, 0.0), share)
+    return {g: {f: list(sh.values()) for f, sh in fits.items()}
+            for g, fits in out.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m nmcfluid_torch.sim.fitprobe")
     ap.add_argument("--shape", choices=tuple(SHAPES), default="tg")
@@ -231,10 +390,20 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--faults", action="store_true",
                     help="with --scene: also the TF32 twin and FAULTS")
+    ap.add_argument("--key_sweep", type=int, default=0,
+                    help="the keyed fit checks over keys 0..N-1, with "
+                         "FAULTS")
+    ap.add_argument("--out", default=None, help="--key_sweep's JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fitprobe: needs a CUDA device")
     dev = torch.device("cuda")
+    if args.key_sweep:
+        res = key_sweep(dev, list(range(args.key_sweep)))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=0, sort_keys=True)
+        return res
     if args.scene:
         res = scene_precision(args.scene, dev, args.seeds, args.faults)
         for seed, row in res.items():

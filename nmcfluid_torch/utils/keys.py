@@ -16,25 +16,61 @@ interface:
                                           device
     key.stream_seed()                  -> uint32 seed for ops.fastrand
 
-`Key` below is the default: each key is a 64-bit integer, children come
-from a splitmix64 hash, and draws come from a CPU `torch.Generator`
-seeded with the key and are then moved to the requested device, so a run
-draws the same numbers on every device (the draws are small: point
-batches, pressure clouds, rotations). Its numbers differ from JAX's; a
-second implementation that replays `jax.random` (tests/_torch_parity.py)
-lets the tests hold whole steps against the JAX package.
+`Key` below is the default: each key is a 64-bit integer and children
+come from a splitmix64 hash of it. A draw of n numbers reads n 64-bit
+words, a counter-based stream over the whole key: word i is the
+(i + 1)-th output of splitmix64 seeded with a hash of all 64 bits, so
+every bit of a key counts and two keys share a stream only if they are
+equal. The words are computed on the CPU in vectorised int64 arithmetic
+(wrapping products, masked logical shifts) and the draw is then moved to
+the requested device, so a run draws the same numbers on every device
+(the draws are small: point batches, pressure clouds, rotations).
+uniform takes the top 24 bits of a word, normal the inverse normal CDF of
+its top 53 bits in float64, randint the high 64 bits of word x range
+(bias under range / 2^64), categorical the Gumbel-max rule over the
+uniforms. `stream_seed` folds the key to the fast RNG's 32-bit seed, as
+the JAX package folds its key's two words. The numbers differ from
+JAX's; a second implementation that replays `jax.random`
+(tests/_torch_parity.py) lets the tests hold whole steps against the JAX
+package.
 """
+import math
+
 import torch
 
 _M64 = (1 << 64) - 1
+_GAMMA = 0x9E3779B97F4A7C15
+_DRAW = 0x2545F4914F6CDD1D        # separates the draw words from `split`
 
 
 def _mix64(x: int) -> int:
     """splitmix64 finalizer: a bijective avalanche hash of 64 bits."""
-    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = (x + _GAMMA) & _M64
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
     return x ^ (x >> 31)
+
+
+def _i64(x: int) -> int:
+    """A 64-bit pattern as the int64 that holds it."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _srl(x, s):
+    """Logical right shift of an int64 tensor (a new tensor)."""
+    return (x >> s).bitwise_and_((1 << (64 - s)) - 1)
+
+
+def _words(value: int, n: int):
+    """n words of the key `value`: splitmix64 seeded with a hash of the
+    whole key, as an int64 tensor on the CPU (the bit patterns of the
+    uint64 words), computed in place."""
+    base = _mix64(value ^ _DRAW)
+    x = torch.arange(1, n + 1, dtype=torch.int64)
+    x.mul_(_i64(_GAMMA)).add_(_i64(base))
+    x.bitwise_xor_(_srl(x, 30)).mul_(_i64(0xBF58476D1CE4E5B9))
+    x.bitwise_xor_(_srl(x, 27)).mul_(_i64(0x94D049BB133111EB))
+    return x.bitwise_xor_(_srl(x, 31))
 
 
 class Key:
@@ -58,23 +94,33 @@ class Key:
     def fold_in(self, data: int):
         return Key(_mix64(self.value ^ _mix64(int(data) & _M64)))
 
-    def _generator(self):
-        g = torch.Generator()
-        g.manual_seed(self.value)
-        return g
+    def _uniform01(self, shape):
+        """float32 uniforms in [0, 1) on the CPU: a word's top 24 bits."""
+        shape = tuple(shape)
+        w = _words(self.value, math.prod(shape))
+        return _srl(w, 40).to(torch.float32).mul_(2.0 ** -24).reshape(shape)
 
     def uniform(self, shape, device, minval=0.0, maxval=1.0):
-        u = torch.rand(tuple(shape), generator=self._generator(),
-                       dtype=torch.float32)
+        u = self._uniform01(shape)
         return (minval + u * (maxval - minval)).to(device)
 
     def normal(self, shape, device):
-        return torch.randn(tuple(shape), generator=self._generator(),
-                           dtype=torch.float32).to(device)
+        shape = tuple(shape)
+        w = _words(self.value, math.prod(shape))
+        u = (_srl(w, 11).to(torch.float64) + 0.5) * 2.0 ** -53
+        return torch.special.ndtri(u).to(torch.float32).reshape(shape).to(
+            device)
 
     def randint(self, shape, lo, hi, device):
-        return torch.randint(lo, hi, tuple(shape), generator=self._generator(),
-                             dtype=torch.int64).to(device)
+        r = int(hi) - int(lo)
+        if not 0 < r < 1 << 31:
+            raise ValueError(f"randint needs 0 < hi - lo < 2^31, got "
+                             f"[{lo}, {hi})")
+        shape = tuple(shape)
+        w = _words(self.value, math.prod(shape))
+        # floor(w * r / 2^64) from the words' 32-bit halves, in int64
+        v = (_srl(w, 32) * r + _srl((w & 0xFFFFFFFF) * r, 32)) >> 32
+        return (v + int(lo)).reshape(shape).to(device)
 
     def categorical(self, logits, shape):
         """Draws from softmax(logits) over its last axis by the Gumbel-max
@@ -82,9 +128,8 @@ class Key:
         with noise of shape `shape` + logits.shape[-1:]."""
         k = logits.shape[-1]
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(tuple(shape) + (k,), generator=self._generator(),
-                       dtype=torch.float32).clamp_(min=tiny)
-        gumbel = -torch.log(-torch.log(u)).to(logits.device)
+        u = self._uniform01(tuple(shape) + (k,)).clamp_(min=tiny)
+        gumbel = (-torch.log(-torch.log(u))).to(logits.device)
         return torch.argmax(gumbel + logits, dim=-1)
 
     def stream_seed(self) -> int:

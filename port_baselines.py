@@ -6,14 +6,17 @@ port's algorithm from its draws.
         [--frames F] [--grid G] [--out DIR]
 
 Runs nmcfluid.baselines.run and nmcfluid_torch.baselines.run (--device
-cpu) with the same flags and nets of L x H, the port twice: once with its
+cpu) with the same flags and nets of L x H, the port four times: with its
 key seam replaying jax.random (tests/_torch_parity.JaxKey), so both
-packages draw the same points, and once with its own key (utils/keys.py),
-which draws others. Each seed s shifts every root key the runners make
-(their seed 0) to s. Prints each run's honest and refpipe means: if the
-replaying run tracks JAX seed by seed, and the port's own key falls
+packages draw the same points (`port_jax_draws`); with its own key
+(utils/keys.py), which draws others (`port_own_key`); and twice mixed,
+the model's initial weights from one key class and the training's
+collocation and boundary draws from the other (`port_jax_init_own_draws`,
+`port_own_init_jax_draws`). Each seed s shifts every root key the runners
+make (their seed 0) to s. Prints each run's honest and refpipe means: if
+the replaying run tracks JAX seed by seed, and the port's own key falls
 within the spread of JAX's seeds, the draws make the difference, not the
-port.
+port; the mixed runs tell which draws.
 """
 import argparse
 import functools
@@ -44,6 +47,15 @@ def main(argv=None):
     import nmcfluid_torch.baselines.run as trun
     from nmcfluid_torch.utils.keys import Key
 
+    def init_from(init, key_cls):
+        """A model's init drawing its weights from key_cls, whatever key
+        the runner hands it (the runner's root key, seed 0)."""
+        return lambda self, seed=0, key=None: init(
+            self, key=key_cls.from_seed(0))
+    models = [getattr(trun, name)
+              for name in ("INSRFluid", "PINNFluid", "PIDeepONetFluid")]
+    inits = [cls.init for cls in models]
+
     flags = [args.method, "--max_n_iters", str(args.max_n_iters),
              "--sample_resolution", str(args.sample_resolution),
              "--frames", str(args.frames), "--grid", str(args.grid)]
@@ -60,13 +72,18 @@ def main(argv=None):
                        lambda s, _s=seed: prng_key(s + _s))
             mp.setattr(Key, "from_seed", classmethod(
                 lambda cls, s, _s=seed: key_seed(cls, s + _s)))
-            for tag, key in (("jax", None), ("port_jax_draws", JaxKey),
-                             ("port_own_key", Key)):
+            for tag, key, init_key in (
+                    ("jax", None, None), ("port_jax_draws", JaxKey, JaxKey),
+                    ("port_own_key", Key, Key),
+                    ("port_jax_init_own_draws", Key, JaxKey),
+                    ("port_own_init_jax_draws", JaxKey, Key)):
                 out = os.path.join(args.out, f"{tag}_s{seed}")
                 if key is None:
                     jrun.main(flags + ["--out", out])
                 else:
                     mp.setattr(trun, "Key", key)
+                    for cls, init in zip(models, inits):
+                        mp.setattr(cls, "init", init_from(init, init_key))
                     trun.main(flags + ["--out", out, "--device", "cpu"])
                 runs[tag, seed] = [np.loadtxt(os.path.join(
                     out, f"error_{args.method}{suffix}.txt"))

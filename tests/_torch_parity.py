@@ -68,6 +68,46 @@ def to_np(t):
         else np.asarray(t)
 
 
+# ------------------------------- Monte Carlo checks drawn with the own key
+
+# A list while port_key_audit.py reads the checks over many keys: each
+# check below then records (what, the share of its tolerance the reading
+# takes) instead of raising. None in a test run.
+AUDIT = None
+
+
+def mc_close(actual, desired, atol, what):
+    """np.testing.assert_allclose(actual, desired, rtol=0, atol=atol) of
+    a Monte Carlo estimate; the share is max |actual - desired| / atol."""
+    a = np.asarray(to_np(actual), np.float64)
+    d = np.asarray(to_np(desired), np.float64)
+    if AUDIT is not None:
+        AUDIT.append((what, float(np.max(np.abs(a - d))) / atol))
+        return
+    np.testing.assert_allclose(a, d, rtol=0, atol=atol, err_msg=what)
+
+
+def mc_below(value, bound, what):
+    """value < bound for a reading drawn by a walk (bound may be one
+    too); the share is value / bound."""
+    value, bound = float(value), float(bound)
+    if AUDIT is not None:
+        AUDIT.append((what, value / bound))
+        return
+    assert value < bound, (what, value, bound)
+
+
+def mc_band(ratio, lo, hi, what):
+    """lo <= ratio <= hi around 1; the share is the ratio's distance from
+    1 over the distance of the band's edge on its side."""
+    ratio = float(ratio)
+    if AUDIT is not None:
+        AUDIT.append((what, (ratio - 1.0) / (hi - 1.0) if ratio >= 1.0
+                      else (1.0 - ratio) / (1.0 - lo)))
+        return
+    assert lo <= ratio <= hi, (what, ratio, lo, hi)
+
+
 def params_np(params):
     """A parameter list of either package as a flat list of numpy arrays."""
     return [to_np(a) for pair in params for a in pair]

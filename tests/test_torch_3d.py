@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, params_np, to_np
+from _torch_parity import JaxKey, mc_close, params_np, to_np
 
 from nmcfluid.geometry import analytic3d as j_box3d
 from nmcfluid.models.boundary import apply_boundary as j_apply_boundary
@@ -361,24 +361,32 @@ def test_gen_matches_jax_gen_3d(case):
                                atol=2e-4)
 
 
+MANUFACTURED_3D_WALKS = 32000
+
+
 def test_gen_solves_manufactured_problem_3d():
     """The port alone, with its own key, on (Lap - SIG) p = -(SIG + 3 pi^2)
     p* with p* = cos(pi x) cos(pi y) cos(pi z), whose flux through every
     face of [-1, 1]^3 is zero: p and grad p at the 2D oracle's tolerances
     (tests/test_gen.py:63-76: atol 0.05 and 0.15) and every point's walks
-    but a few valid. JAX gen's 3D path has no unit oracle of its own."""
+    but a few valid. JAX gen's 3D path has no unit oracle of its own. The
+    gradient's error has a heavy tail: over keys 0-11 it reached 0.30,
+    twice the atol, at 2,000 walks and 0.163 at 8,000 under the port's
+    key; MANUFACTURED_3D_WALKS is sized so that no key of the audit
+    (port_key_audit.py) reads over 80% of it. Generations of 1024 pairs
+    take the same walks in fewer, wider steps."""
     pts = np.asarray([[0.0, 0.0, 0.0], [0.3, -0.4, 0.2],
                       [-0.6, 0.5, 0.7], [0.8, 0.1, -0.3]], np.float32)
     scene, _ = _cube_scene("torch", "manufactured")
-    p, grad, n = t_gen(scene, TSettings(algo="gen"), torch.from_numpy(pts),
-                       Key(0), 2000)
-    np.testing.assert_allclose(to_np(p), _pstar(pts), atol=0.05)
+    p, grad, n = t_gen(scene, TSettings(algo="gen", gen_group_pairs=1024),
+                       torch.from_numpy(pts), Key(0), MANUFACTURED_3D_WALKS)
+    mc_close(p, _pstar(pts), 0.05, "p")
     s, c = np.sin(math.pi * pts), np.cos(math.pi * pts)
     want = -math.pi * np.stack([s[:, 0] * c[:, 1] * c[:, 2],
                                 c[:, 0] * s[:, 1] * c[:, 2],
                                 c[:, 0] * c[:, 1] * s[:, 2]], -1)
-    np.testing.assert_allclose(to_np(grad), want, atol=0.15)
-    assert np.all(to_np(n) > 1700)
+    mc_close(grad, want, 0.15, "grad p")
+    assert np.all(to_np(n) > 0.85 * MANUFACTURED_3D_WALKS)
 
 
 # -------------------------------------------------------------- scenes

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, chained_runs, params_np, to_np
+from _torch_parity import JaxKey, chained_runs, mc_below, params_np, to_np
 
 import nmcfluid_torch.sim.fluid as tfluid
 from nmcfluid_torch.models.siren import params_from_numpy
@@ -117,7 +117,7 @@ def test_3d_tiny_step_of_the_port(name):
     def err(state):
         u = f.velocity(state.params, pts, eps=state.eps, t=state.timestep)
         return float(torch.sum((u - src) ** 2) / torch.sum(src ** 2))
-    assert err(s1) < err(s0)
+    mc_below(err(s1), err(s0), "source fit's error / the start's")
     s2 = f.step(s1)
     pts_p, p, grad_p, div = f._last_projection
     assert div.shape == (16, 16, 16) and p.shape == (256,)

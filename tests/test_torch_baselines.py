@@ -90,6 +90,39 @@ def test_init_bit_equal(method):
     _assert_tree_equal(tm.init(key=JaxKey.from_seed(3)), jm.init(3))
 
 
+@pytest.mark.parametrize("method", sorted(CLASSES))
+def test_own_key_init_has_the_jax_init_distribution(method):
+    """The initial weights the port draws with its own key
+    (utils/keys.py) come from the JAX init's distribution: each leaf of
+    seeds 0-8 pooled, at port_baselines.py's 3 x 64 nets, against the JAX
+    package's init of the same seeds, by the two-sample Kolmogorov-Smirnov
+    statistic under its critical value at level 1e-6, c n^-1/2 with
+    c = sqrt(ln(2 / 1e-6) / 2) and n the two samples' harmonic size; a
+    constant leaf equal. PI-DeepONet's own-key tail follows the initial
+    weights (ROADMAP queue 3, item 19): this holds that their draw is
+    JAX's, not the port's own."""
+    from scipy import stats
+    jcls, tcls = CLASSES[method]
+    net = dict(num_hidden_layers=3, hidden_features=64)
+    jm, tm = jcls(**net), tcls(**net, device="cpu")
+    seeds = range(9)
+    j_leaves = [np.concatenate([np.asarray(a).ravel() for a in leaves])
+                for leaves in zip(*[jax.tree_util.tree_leaves(jm.init(s))
+                                    for s in seeds])]
+    t_leaves = [np.concatenate([a.ravel() for a in leaves])
+                for leaves in zip(*[_leaves_np(tm.init(key=Key(s)))
+                                    for s in seeds])]
+    assert len(j_leaves) == len(t_leaves)
+    c = np.sqrt(np.log(2 / 1e-6) / 2)
+    for i, (a, b) in enumerate(zip(t_leaves, j_leaves)):
+        assert a.shape == b.shape, i
+        if np.all(b == b[0]):
+            np.testing.assert_array_equal(a, b)
+            continue
+        d = stats.ks_2samp(a, b).statistic
+        assert d < c * np.sqrt(2 / a.size), (i, a.size, d)
+
+
 def test_tg_velocity_matches_jax():
     """The analytic field on random points, to f32 rounding of sin/cos."""
     x = np.random.default_rng(0).uniform(-1, 1, (500, 2)).astype(np.float32)

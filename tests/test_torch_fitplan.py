@@ -169,3 +169,51 @@ def test_divergence_probe_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         divprobe.main([])
+
+
+def test_chip_smoke_fit_bounds_are_the_swept_ones():
+    """chip_smoke.py's fit check on the 2 x 128 nets holds the bounds that
+    `fitprobe --key_sweep` reads it against (fitprobe.SMOKE_ATOL): the
+    atol against the f32 twin in PATHS, the float64 one in ATOL64."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", CU.parents[2] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    paths = {p[0]: p[2] for p in cs.PATHS}
+    for name, (atol, atol64) in fitprobe.SMOKE_ATOL.items():
+        assert paths[name] == atol, name
+        assert cs.ATOL64[name] == atol64, name
+    assert set(cs.ATOL64) == set(fitprobe.SMOKE_ATOL)
+
+
+def test_sweep_shares_take_the_worst_pool_seed_and_both_twins():
+    """fitprobe.sweep_shares: a fit's share at a key is the largest, over
+    chip_smoke.py's pool seeds, of the atol it needs against the f32 twin
+    and against the float64 twin (where the check holds one), each over
+    its bound; the f32 twin's own row is not a fit."""
+    def fit(t, d):
+        return {"twin": {"top": [t]}, "f64": {"top": [d]}}
+    res = {
+        "chip_smoke.py karman pool seed 0": {
+            "atol": (1e-5, 2e-5),
+            "keys": {"0": {"twin": {"f64": {"top": [9.0]}},
+                           "kernel": fit(5e-6, 1e-5),
+                           "drop_row": fit(1e-3, 1e-3)}}},
+        "chip_smoke.py karman pool seed 1": {
+            "atol": (1e-5, 2e-5),
+            "keys": {"0": {"twin": {"f64": {"top": [9.0]}},
+                           "kernel": fit(2e-6, 3e-5),
+                           "drop_row": fit(2e-3, 1e-3)}}},
+        "test_pool_cycling_and_lr_array_on_card": {
+            "atol": (4e-6, None),
+            "keys": {"0": {"kernel": fit(2e-6, 1.0)},
+                     "1": {"kernel": fit(3e-6, 1.0)}}},
+    }
+    got = fitprobe.sweep_shares(res)
+    assert set(got) == {"chip_smoke.py karman",
+                        "test_pool_cycling_and_lr_array_on_card"}
+    assert got["chip_smoke.py karman"]["kernel"] == pytest.approx([1.5])
+    assert got["chip_smoke.py karman"]["drop_row"] == pytest.approx([200.0])
+    assert got["test_pool_cycling_and_lr_array_on_card"]["kernel"] == \
+        pytest.approx([0.5, 0.75])

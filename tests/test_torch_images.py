@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, to_np
+from _torch_parity import JaxKey, mc_close, to_np
 
 from nmcfluid.scenes import images as j_images
 from nmcfluid.utils.pfm import read_pfm as j_read_pfm
@@ -149,7 +149,10 @@ def test_images_walk_matches_jax(tmp_path):
 
 def test_images_mixed_bc_solution(tmp_path):
     """The port alone with its own key, the JAX test's 2000 walks and
-    atol 0.07 (the image's nearest-cell bias included)."""
+    atol 0.07 (the image's nearest-cell bias included). Over keys 0-11
+    (port_key_audit.py) the error's mean is 0.61 of the atol and its worst
+    0.83-0.84 at 2000, 3000 and 8000 walks alike: more walks do not move
+    it, so the JAX test's count stays."""
     obj, paths, sig, kx = _manufactured(tmp_path)
     scene, meta = t_images.scene_from_images(obj, absorption=sig,
                                              device="cpu", **paths)
@@ -159,7 +162,7 @@ def test_images_mixed_bc_solution(tmp_path):
                                      ignore_dirichlet=False),
         torch.from_numpy(PTS), Key(0), 2000)
     want = np.cos(kx * PTS[:, 0]) * np.cos(kx * PTS[:, 1])
-    np.testing.assert_allclose(to_np(p), want, atol=0.07)
+    mc_close(p, want, 0.07, "p")
     assert np.all(to_np(n) > 1200)
 
 

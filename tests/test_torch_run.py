@@ -122,7 +122,7 @@ def test_resume_keeps_energy_rows_and_stops_at_until(tmp_path):
     pytest.param(["smoke", "--adaptive_walks", "1"], "adaptive_walks",
                  id="argv6-Yukawa"),
 ])
-def test_unported_raise_before_any_file(tmp_path, monkeypatch, argv,
+def test_once_refused_flags_run_the_cli(tmp_path, monkeypatch, argv,
                                         name):
     """(f) The flags once refused (the lockstep gradient, adaptive
     allocation, fit_ensemble) run the port's CLI at CLI_TINY's sizes,

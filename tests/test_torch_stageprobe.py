@@ -14,6 +14,8 @@ import sys
 import numpy as np
 import torch
 
+from _torch_parity import mc_below
+
 import nmcfluid_torch.run as trun
 from nmcfluid_torch.sim import stageprobe
 from nmcfluid_torch.utils.checkpoint import load_ckpt
@@ -93,8 +95,9 @@ def test_probe_and_port_stages_print_the_same_readings(tmp_path):
         assert set(port[k]) <= set(jax[k]) | {"after_project", "project"}
     np.testing.assert_allclose(port["tg_err"]["before"],
                                jax["tg_err"]["before"], rtol=1e-5)
-    np.testing.assert_allclose(port["tg_err"]["after_advect"],
-                               jax["tg_err"]["after_advect"], rtol=1e-2)
+    after, want = port["tg_err"]["after_advect"], jax["tg_err"]["after_advect"]
+    mc_below(abs(after - want), 1e-2 * abs(want),
+             "the advection fit's error against JAX's, over rtol 1e-2")
     assert np.isfinite(port["project_one_chunk"]["tg_err"])
 
 

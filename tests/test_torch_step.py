@@ -105,7 +105,7 @@ def test_final_state(runs):
                                   dict(wost_source="net",
                                        walk_settings=WalkSettings(
                                            algo="pool", adaptive_walks=1.0))])
-def test_unported_flags_raise(over, monkeypatch):
+def test_once_refused_flags_step(over, monkeypatch):
     """The flags once refused run a tiny add_source + step at TINY sizes:
     fit_ensemble 2 (two fits a phase, averaged: the fit count doubles),
     the lockstep gradient (algo "lockstep", and fast_rng=False, which

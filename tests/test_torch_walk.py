@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, to_np
+from _torch_parity import JaxKey, mc_band, mc_close, to_np
 
 from nmcfluid.geometry.analytic2d import make_analytic2d as j_box
 from nmcfluid.scenes import get_scene as j_get_scene
@@ -144,15 +144,14 @@ def test_gen_solves_manufactured_problem():
     p, grad, n = t_gen(_manufactured("torch"), TSettings(algo="gen"),
                        torch.from_numpy(PTS), Key(0), 2000)
     pstar = np.cos(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1])
-    np.testing.assert_allclose(to_np(p), pstar, atol=0.05)
+    mc_close(p, pstar, 0.05, "p")
     gx = -KX * np.sin(KX * PTS[:, 0]) * np.cos(KX * PTS[:, 1])
     gy = -KX * np.cos(KX * PTS[:, 0]) * np.sin(KX * PTS[:, 1])
-    np.testing.assert_allclose(to_np(grad), np.stack([gx, gy], -1),
-                               atol=0.15)
+    mc_close(grad, np.stack([gx, gy], -1), 0.15, "grad p")
     assert np.all(to_np(n) > 1700)
 
 
-def test_gen_unported_settings_raise():
+def test_router_settings_meet_manufactured_problem():
     """The settings once refused run through the router: the lockstep
     gradient (algo "lockstep", and fast_rng=False, which routes there)
     and adaptive allocation (on the pool, whether the algo is gen or
@@ -172,10 +171,8 @@ def test_gen_unported_settings_raise():
                  dict(algo="pool", adaptive_walks=1.0)):
         p, g, n = estimate_solution_and_gradient(
             scene, TSettings(**over), pts, Key(0), 400)
-        np.testing.assert_allclose(to_np(p), pstar, atol=0.08,
-                                   err_msg=str(over))
-        np.testing.assert_allclose(to_np(g), gstar, atol=0.3,
-                                   err_msg=str(over))
+        mc_close(p, pstar, 0.08, f"p {over}")
+        mc_close(g, gstar, 0.3, f"grad p {over}")
         # an adaptive run may stop a point after the first round
         assert np.all(to_np(n) > (64 if "adaptive_walks" in over else 300)
                       ), over
@@ -185,14 +182,15 @@ def test_gen_unported_settings_raise():
 
 def test_port_key_walk_error_matches_jax_key():
     """The port's own key (utils/keys.py) gives the walk the same error as
-    the JAX-replay key on the manufactured problem: 256 points x 500
+    the JAX-replay key on the manufactured problem: 320 points x 500
     walks, two keys of each class; each RMS error of p and of grad p
-    within [0.8, 1.25] x the JAX-replay keys' mean (the four read 0.0105 to
-    0.0117 for p, 0.053 to 0.058 for grad p). A key class whose streams
-    were correlated would read several times more."""
+    within [0.8, 1.25] x the JAX-replay keys' mean. A key class whose
+    streams were correlated would read several times more. The ratio's
+    noise falls with the points, not the walks: at 256 points a key of
+    keys 0-11 read 82% of the band (port_key_audit.py)."""
     ts = _manufactured("torch")
     rng = np.random.default_rng(1)
-    pts = torch.from_numpy(rng.uniform(0.1 * L, 0.9 * L, (256, 2)).astype(
+    pts = torch.from_numpy(rng.uniform(0.1 * L, 0.9 * L, (320, 2)).astype(
         np.float32))
     x, y = pts[:, 0], pts[:, 1]
     p_true = torch.cos(KX * x) * torch.cos(KX * y)
@@ -206,5 +204,5 @@ def test_port_key_walk_error_matches_jax_key():
     jax_rms = np.mean([rms(JaxKey(jax.random.PRNGKey(s))) for s in (3, 9)],
                       axis=0)
     for seed in (3, 12345):
-        for got, want in zip(rms(Key(seed)), jax_rms):
-            assert 0.8 * want <= got <= 1.25 * want
+        for what, got, want in zip(("p", "grad p"), rms(Key(seed)), jax_rms):
+            mc_band(got / want, 0.8, 1.25, f"{what} rms, key {seed}")

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKey, to_np
+from _torch_parity import JaxKey, mc_below, mc_close, to_np
 
 from nmcfluid.geometry import analytic3d as j_a3
 from nmcfluid.geometry import soup2d as j_soup
@@ -333,27 +333,27 @@ def test_estimate_solution_matches_jax(solution_runs, case):
 def test_estimate_solution_manufactured():
     """The port alone with its own key, at tests/test_dirichlet.py's and
     test_doublesided.py's sizes and atol: the mixed problem (3000 walks,
-    atol 0.05), the barrier (atol 0.08), and dropping the terminal
-    Dirichlet data moves the estimate by more than 0.15."""
+    atol 0.05), the barrier (atol 0.08, 10,000 walks: at 3000 a key of
+    keys 0-11 read 83% of it, at 4000 81%, port_key_audit.py), and
+    dropping the
+    terminal Dirichlet data moves the estimate by more than 0.15."""
     lib = LIBS["torch"]
     scene = mixed_scene(lib)
     s = t_solver.WalkSettings(walk_step_cap=256, ignore_dirichlet=False)
     pts = torch.from_numpy(PTS_D)
     p, n, _ = t_solver.estimate_solution(scene, s, pts, Key(0), 3000)
-    np.testing.assert_allclose(to_np(p), to_np(_p_star(lib, pts)),
-                               atol=0.05)
+    mc_close(p, _p_star(lib, pts), 0.05, "p")
     assert np.all(to_np(n) > 2000)
     p0, _, _ = t_solver.estimate_solution(
         scene, dataclasses.replace(s, ignore_dirichlet=True), pts, Key(0),
         3000)
-    assert float((p0 - p).abs().max()) > 0.15
+    mc_below(0.15, (p0 - p).abs().max(), "the Dirichlet data moves p")
     bpts = torch.tensor([[0.3, 1.0], [0.55, 0.5], [1.1, 1.0], [1.6, 1.4]])
     pb, nb, _ = t_solver.estimate_solution(
         barrier_scene(lib), dataclasses.replace(s, solve_double_sided=True),
-        bpts, Key(1), 3000)
-    np.testing.assert_allclose(to_np(pb), to_np(_p_barrier(lib, bpts)),
-                               atol=0.08)
-    assert np.all(to_np(nb) > 2000)
+        bpts, Key(1), 10000)
+    mc_close(pb, _p_barrier(lib, bpts), 0.08, "p at the barrier")
+    assert np.all(to_np(nb) > 6666)
 
 
 def test_neumann_data_walk_manufactured():
@@ -374,11 +374,12 @@ def test_neumann_data_walk_manufactured():
     s = t_solver.WalkSettings(walk_step_cap=96)
     p, n, _ = t_solver.estimate_solution(scene, s, pts, Key(0), 3000)
     want = torch.cos(K * pts[:, 0])
-    np.testing.assert_allclose(to_np(p), to_np(want), atol=0.06)
+    mc_close(p, want, 0.06, "p")
     p0, _, _ = t_solver.estimate_solution(
         scene, dataclasses.replace(s, ignore_neumann=True), pts, Key(0),
         3000)
-    assert abs(float(p0[1] - want[1])) > abs(float(p[1] - want[1]))
+    mc_below(abs(float(p[1] - want[1])), abs(float(p0[1] - want[1])),
+             "the flux's error below the flux-free error")
 
 
 # ------------------------------------------------ the gradient executors
@@ -449,8 +450,8 @@ def test_pool_solves_manufactured_problem(box_scenes):
     p, g, n = t_solver.estimate_solution_and_gradient(box_scenes["torch"],
                                                       s, pts, Key(7))
     assert int(n.min()) > 150
-    assert float((p - _p_star(lib, pts)).abs().mean()) < 0.03
-    assert float((g - g_true).abs().mean()) < 0.12
+    mc_below((p - _p_star(lib, pts)).abs().mean(), 0.03, "mean |dp|")
+    mc_below((g - g_true).abs().mean(), 0.12, "mean |d grad p|")
     plain = dataclasses.replace(s, n_walks=128,
                                 use_gradient_antithetic_variates=False,
                                 use_gradient_control_variates=False)
@@ -459,8 +460,9 @@ def test_pool_solves_manufactured_problem(box_scenes):
     _, g_full, _ = t_solver.estimate_solution_and_gradient(
         box_scenes["torch"], dataclasses.replace(s, n_walks=128), pts,
         Key(9))
-    assert float(((g_full - g_true) ** 2).mean()) \
-        < float(((g_plain - g_true) ** 2).mean())
+    mc_below(((g_full - g_true) ** 2).mean(),
+             ((g_plain - g_true) ** 2).mean(),
+             "the variates' squared error below the plain one's")
 
 
 @pytest.mark.parametrize("case", ["dirichlet_gen", "dirichlet_pool",
@@ -522,40 +524,40 @@ def test_gen_matches_pool_with_boundary_data(what):
     np.testing.assert_allclose(gp, gg, **G_TOL)
 
 
-def test_gradient_executors_manufactured():
+@pytest.mark.parametrize("algo", ["gen", "pool"])
+def test_gradient_executors_manufactured(algo):
     """tests/test_dirichlet.py::test_dirichlet_gradient_both_executors and
     test_doublesided.py's gradient on the port alone, gen and pool, at
-    the JAX tests' atol (p 0.06 and 0.08, grad 0.15 and 0.2) with 3000
-    walks; larger generations and pools only reorder the work."""
+    the JAX tests' atol (p 0.06 and 0.08, grad 0.15 and 0.2) with 10,000
+    walks: the barrier's gradient has a heavy tail, and over keys 0-11 it
+    read 102% of its atol at the JAX tests' 3000 and 98% at 5000
+    (port_key_audit.py); generations of 2048 pairs and pools of 2048
+    slots only reorder the work."""
     lib = LIBS["torch"]
     gx = lambda x: np.where(x < M, -KL * CL * np.sin(KL * x),
                             KR * CR * np.sin(KR * (L - x)))
     bpts = np.asarray([[0.4, 1.0], [1.3, 0.9]], np.float32)
-    for algo in ("gen", "pool"):
-        s = t_solver.WalkSettings(ignore_dirichlet=False, algo=algo,
-                                  gen_group_pairs=64, pool_slots=4096,
-                                  gen_step_cap=256, pool_step_cap=256)
-        pts = torch.from_numpy(PTS_D)
-        p, g, n = t_solver.estimate_solution_and_gradient(
-            mixed_scene(lib), s, pts, Key(2), 3000)
-        np.testing.assert_allclose(to_np(p), to_np(_p_star(lib, pts)),
-                                   atol=0.06, err_msg=algo)
-        want = np.stack([-KX * np.sin(KX * PTS_D[:, 0])
-                         * np.cos(KX * PTS_D[:, 1]),
-                         -KX * np.cos(KX * PTS_D[:, 0])
-                         * np.sin(KX * PTS_D[:, 1])], -1)
-        np.testing.assert_allclose(to_np(g), want, atol=0.15, err_msg=algo)
-        assert np.all(to_np(n) > 2000)
-        p, g, _ = t_solver.estimate_solution_and_gradient(
-            barrier_scene(lib), dataclasses.replace(
-                s, solve_double_sided=True), torch.from_numpy(bpts), Key(2),
-            3000)
-        np.testing.assert_allclose(
-            to_np(p), to_np(_p_barrier(lib, torch.from_numpy(bpts))),
-            atol=0.08, err_msg=algo)
-        np.testing.assert_allclose(
-            to_np(g), np.stack([gx(bpts[:, 0]), 0 * bpts[:, 0]], -1),
-            atol=0.2, err_msg=algo)
+    s = t_solver.WalkSettings(ignore_dirichlet=False, algo=algo,
+                              gen_group_pairs=2048, pool_slots=2048,
+                              gen_step_cap=256, pool_step_cap=256)
+    pts = torch.from_numpy(PTS_D)
+    p, g, n = t_solver.estimate_solution_and_gradient(
+        mixed_scene(lib), s, pts, Key(2), 10000)
+    mc_close(p, _p_star(lib, pts), 0.06, f"{algo} p")
+    want = np.stack([-KX * np.sin(KX * PTS_D[:, 0])
+                     * np.cos(KX * PTS_D[:, 1]),
+                     -KX * np.cos(KX * PTS_D[:, 0])
+                     * np.sin(KX * PTS_D[:, 1])], -1)
+    mc_close(g, want, 0.15, f"{algo} grad p")
+    assert np.all(to_np(n) > 6666)
+    p, g, _ = t_solver.estimate_solution_and_gradient(
+        barrier_scene(lib), dataclasses.replace(
+            s, solve_double_sided=True), torch.from_numpy(bpts), Key(2),
+        10000)
+    mc_close(p, _p_barrier(lib, torch.from_numpy(bpts)), 0.08,
+             f"{algo} p at the barrier")
+    mc_close(g, np.stack([gx(bpts[:, 0]), 0 * bpts[:, 0]], -1), 0.2,
+             f"{algo} grad p at the barrier")
 
 
 # ---------------------------------------------------------------- 3D
@@ -588,12 +590,26 @@ def test_harmonic3d_walk_in_the_cube_matches_jax():
     assert np.all(out["torch", 0.0][1] == 0)
 
 
-def test_unported_settings_raise_naming_why():
-    """The settings once refused run: the lockstep gradient (algo
-    "lockstep", and fast_rng=False, which routes there) and adaptive
-    allocation (on the pool, under algo gen or pool) meet the mixed
-    problem at the JAX tests' size and atol (3000 walks, p 0.06, grad
-    0.15); 3D boundary data, once refused, runs on a triangle soup
+# each setting once refused, and the walks it meets the mixed problem
+# with: the JAX tests' 3000, or 5000 for adaptive allocation, whose
+# gradient read 96% of its atol at 3000 on a key of keys 0-11
+# (port_key_audit.py)
+ROUTER_CASES = {
+    "lockstep": ([dict(algo="lockstep")], 3000),
+    "threefry": ([dict(fast_rng=False)], 3000),
+    "adaptive": ([dict(adaptive_walks=1.0),
+                  dict(algo="pool", adaptive_walks=1.0)], 5000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTER_CASES))
+def test_router_settings_meet_mixed_problem(case):
+    """The settings once refused run through the router and meet the
+    mixed problem at the JAX tests' atol (p 0.06, grad 0.15): the lockstep
+    gradient (algo "lockstep", and fast_rng=False, which routes there) and
+    adaptive allocation, which runs on the pool whether the algo is gen or
+    pool (both give the same numbers). With the lockstep case, 3D
+    boundary data, once refused, runs on a triangle soup
     (tests/test_torch_mixed3d.py holds it against JAX)."""
     lib = LIBS["torch"]
     scene = mixed_scene(lib)
@@ -601,23 +617,22 @@ def test_unported_settings_raise_naming_why():
     want = np.stack([-KX * np.sin(KX * PTS_D[:, 0]) * np.cos(KX * PTS_D[:, 1]),
                      -KX * np.cos(KX * PTS_D[:, 0]) * np.sin(KX * PTS_D[:, 1])],
                     -1)
-    out = {}
-    for over in (dict(algo="lockstep"), dict(fast_rng=False),
-                 dict(adaptive_walks=1.0), dict(algo="pool",
-                                                adaptive_walks=1.0)):
+    settings, walks = ROUTER_CASES[case]
+    out = []
+    for over in settings:
         s = t_solver.WalkSettings(ignore_dirichlet=False, walk_step_cap=256,
                                   pool_step_cap=256, pool_slots=4096, **over)
         p, g, n = t_solver.estimate_solution_and_gradient(scene, s, pts,
-                                                          Key(2), 3000)
-        np.testing.assert_allclose(to_np(p), to_np(_p_star(lib, pts)),
-                                   atol=0.06, err_msg=str(over))
-        np.testing.assert_allclose(to_np(g), want, atol=0.15,
-                                   err_msg=str(over))
-        assert np.all(to_np(n) > 500), over
-        out[over.get("algo", "gen"), over.get("fast_rng", True)] = (p, g, n)
-    # adaptive allocation runs on the pool whether the algo is gen or pool
-    for a, b in zip(out["gen", True], out["pool", True]):
-        assert torch.equal(a, b)
+                                                          Key(2), walks)
+        mc_close(p, _p_star(lib, pts), 0.06, f"p {over}")
+        mc_close(g, want, 0.15, f"grad p {over}")
+        assert np.all(to_np(n) > walks // 6), over
+        out.append((p, g, n))
+    if case == "adaptive":
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+    if case != "lockstep":
+        return
     box = build_triangles(*box_tris((-1.0,) * 3, (1.0,) * 3))
     s3 = t_solver.WostScene(dim=3, neumann=box, absorption=30.0,
                             source_fn=lambda x: x[..., 0],
