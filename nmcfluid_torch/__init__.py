@@ -22,10 +22,10 @@ solves from files (scenes/images.py, scenes/custom.py). Entry points:
 
     python -m nmcfluid_torch.run <scene> [flags]     simulate, save, resume
     python -m nmcfluid_torch.replay <scene> {energy,vorticity,velocity}
-    python -m nmcfluid_torch.bench                   time a frame
 
-each on the card unless given `--device cpu`. Every flag of the JAX CLI
-runs, the JAX package's measured negatives too (--fit_ensemble,
+each on the card unless given `--device cpu`; the port's benchmark is
+`python3 -m nmcbench` (BENCHMARK.json at the root). Every flag of the JAX
+CLI runs, the JAX package's measured negatives too (--fit_ensemble,
 --adaptive_walks), default-off as there.
 `wost/pallas_probe.py` measures the walk's table gather in the four forms
 the TPU tried, each a hand-written CUDA kernel.

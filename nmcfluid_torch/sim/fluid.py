@@ -42,7 +42,6 @@ import contextlib
 import dataclasses
 import math
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -55,6 +54,7 @@ from ..models.boundary import apply_boundary
 from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             apply_siren_tangents, init_siren)
 from ..parallel.mesh import points_mesh, replicate, shard_bounds
+from ..utils import spans
 from ..utils.keys import Key
 from ..wost.solver import (WalkSettings, WostScene,
                            estimate_solution_and_gradient)
@@ -220,24 +220,26 @@ class NeuralFluid:
         # package's fixed PRNGKey(7), folded with the timestep, not the
         # step's key; init_state makes it of its own key's class
         self.bc_key = Key(7)
-        # opt-in per-stage wall-clock breakdown (synchronized per stage)
+        # opt-in per-stage wall-clock breakdown (utils/spans.py): with
+        # profile on, step and add_source bind stage_times as the spans'
+        # sink, and each stage synchronizes
         self.profile = False
         self.stage_times: dict = {}
 
+    def _traced(self):
+        """The spans' binding of a public entry point: stage_times when
+        profile is on (read at each call: callers assign a fresh dict
+        between calls), else none."""
+        return spans.bound(self.stage_times if self.profile else None)
+
     def _timed(self, name, fn, *args):
-        """Run a stage; when self.profile, synchronize and accumulate its
-        wall-clock under stage_times[name]."""
-        if not self.profile:
+        """Run a stage as the span `name`: with profile on, synchronized,
+        its wall-clock added to stage_times[name]; under torch.profiler, a
+        "stage:<name>" range. A caller that opens the same range around
+        this one nests a range of the same name, which reads the same
+        under an innermost-range rule."""
+        with spans.span(name, self.device):
             return fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stage_times[name] = (self.stage_times.get(name, 0.0)
-                                  + time.perf_counter() - t0)
-        return out
 
     # ------------------------------------------------------------- velocity
 
@@ -256,15 +258,16 @@ class NeuralFluid:
             return apply_boundary(self.scene, raw, x, eps=eps, t=t,
                                   key=self.bc_key)
 
-        zero = torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,
-                           device=x.device)
-        c = g(zero)
-        cols = []
-        for d in range(dim):
-            e = zero.clone()
-            e[..., d] = 1.0
-            cols.append(g(e) - c)
-        return torch.stack(cols, dim=-1), c
+        with spans.span("bc_affine"):
+            zero = torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,
+                               device=x.device)
+            c = g(zero)
+            cols = []
+            for d in range(dim):
+                e = zero.clone()
+                e[..., d] = 1.0
+                cols.append(g(e) - c)
+            return torch.stack(cols, dim=-1), c
 
     # ----------------------------------------------------------------- init
 
@@ -292,9 +295,10 @@ class NeuralFluid:
     def add_source(self, state: SimState) -> SimState:
         """Fit the initial condition (base.py:313-335)."""
         key, k1, _ = state.key.split(3)
-        params, stats = self._timed("source_fit", _fit_source, self,
-                                    state.params, k1, state.eps,
-                                    state.timestep)
+        with self._traced():
+            params, stats = self._timed("source_fit", _fit_source, self,
+                                        state.params, k1, state.eps,
+                                        state.timestep)
         self._last_stats = stats
         return state._replace(params=params, key=key)
 
@@ -302,6 +306,10 @@ class NeuralFluid:
         """One operator-split timestep (model_split.py:44-82); with adv_ref
         the reflection variant (:63-81): advect(dt/2), project, MacCormack
         advect(dt/2) against the first advection fit, project."""
+        with self._traced():
+            return self._step(state)
+
+    def _step(self, state):
         state = state._replace(timestep=state.timestep + 1)
         prev = state.params
         dt = self.scene.dt
@@ -561,13 +569,14 @@ def _fused_fit(fluid, params0, key, batch_fn):
     pool (x, A, c, target, w) from keys fold_in(key, i), i < K, run the
     fused fit, then the closed-form head solve."""
     xs, As, cs, ts, ws = [], [], [], [], []
-    # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
-    for i in range(fluid.fit_pool):
-        x, target, w = batch_fn.batch(key.fold_in(i))
-        A, c = batch_fn.affine(x)
-        for lst, a in zip((xs, As, cs, ts, ws), (x, A, c, target, w)):
-            lst.append(a)
-    pool = tuple(torch.stack(lst) for lst in (xs, As, cs, ts, ws))
+    with spans.span("pool_build", fluid.device):
+        # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
+        for i in range(fluid.fit_pool):
+            x, target, w = batch_fn.batch(key.fold_in(i))
+            A, c = batch_fn.affine(x)
+            for lst, a in zip((xs, As, cs, ts, ws), (x, A, c, target, w)):
+                lst.append(a)
+        pool = tuple(torch.stack(lst) for lst in (xs, As, cs, ts, ws))
     # with profile on, the fit's own device time (CUDA events) goes to
     # stage_times["fit_kernel"], apart from the pool build and head solve
     timed = fluid.profile and pool[0].is_cuda
@@ -605,9 +614,9 @@ def _ls_head_solve(fluid, params, key, batch_fn):
     dim = fluid.scene.dim
     h1 = W.shape[0] + 1                       # features + bias column
     dev = W.device
-    M = torch.zeros((h1, dim, h1, dim), dtype=torch.float32, device=dev)
-    rhs = torch.zeros((h1, dim), dtype=torch.float32, device=dev)
-    with torch.no_grad():
+    with spans.span("head_solve", fluid.device), torch.no_grad():
+        M = torch.zeros((h1, dim, h1, dim), dtype=torch.float32, device=dev)
+        rhs = torch.zeros((h1, dim), dtype=torch.float32, device=dev)
         for j in range(fluid.ls_head):
             kb = key.fold_in(fluid.max_n_iters + 1 + j)
             x, target, w = batch_fn.batch(kb)
@@ -666,7 +675,8 @@ class _SourceBatches(_PhaseBatches):
     def batch(self, kb):
         k1, k2 = kb.split(2)
         pts, w = self.points(k1)
-        return pts, self.fluid.scene.source_velocity(pts, key=k2), w
+        with spans.span("fit_targets"):
+            return pts, self.fluid.scene.source_velocity(pts, key=k2), w
 
 
 class _AdvectBatches(_PhaseBatches):
@@ -680,12 +690,13 @@ class _AdvectBatches(_PhaseBatches):
     def batch(self, kb):
         f = self.fluid
         pts, w = self.points(kb)
-        u_prev = self.velocity(self.prev, pts)
-        back = torch.clamp(pts - u_prev * self.dt, f._bbox_lo,
-                           f._bbox_hi)              # model_split.py:99-100
-        adv = self.velocity(self.prev, back)
-        if self.flag:
-            adv = 2.0 * adv - self.velocity(self.tilde, back)
+        with spans.span("fit_targets"):
+            u_prev = self.velocity(self.prev, pts)
+            back = torch.clamp(pts - u_prev * self.dt, f._bbox_lo,
+                               f._bbox_hi)          # model_split.py:99-100
+            adv = self.velocity(self.prev, back)
+            if self.flag:
+                adv = 2.0 * adv - self.velocity(self.tilde, back)
         return pts, adv, w
 
 
@@ -698,8 +709,9 @@ class _ProjectBatches(_PhaseBatches):
         f = self.fluid
         idx = kb.randint((f.n_batch,), 0, self.cloud.shape[0], f.device)
         pts = self.cloud[idx]
-        target = self.velocity(self.prev, pts) - self.grad_p[idx]
-        return pts, target, torch.ones(f.n_batch, device=f.device)
+        with spans.span("fit_targets"):
+            target = self.velocity(self.prev, pts) - self.grad_p[idx]
+            return pts, target, torch.ones(f.n_batch, device=f.device)
 
 
 def _fit_source(fluid, params0, key, eps, t):

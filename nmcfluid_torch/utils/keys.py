@@ -28,7 +28,8 @@ the requested device, so a run draws the same numbers on every device
 uniform takes the top 24 bits of a word, normal the inverse normal CDF of
 its top 53 bits in float64, randint the high 64 bits of word x range
 (bias under range / 2^64), categorical the Gumbel-max rule over the
-uniforms. `stream_seed` folds the key to the fast RNG's 32-bit seed, as
+uniforms. Each draw is the span "key_draw" (utils/spans.py).
+`stream_seed` folds the key to the fast RNG's 32-bit seed, as
 the JAX package folds its key's two words. The numbers differ from
 JAX's; a second implementation that replays `jax.random`
 (tests/_torch_parity.py) lets the tests hold whole steps against the JAX
@@ -37,6 +38,8 @@ package.
 import math
 
 import torch
+
+from .spans import span
 
 _M64 = (1 << 64) - 1
 _GAMMA = 0x9E3779B97F4A7C15
@@ -101,15 +104,17 @@ class Key:
         return _srl(w, 40).to(torch.float32).mul_(2.0 ** -24).reshape(shape)
 
     def uniform(self, shape, device, minval=0.0, maxval=1.0):
-        u = self._uniform01(shape)
-        return (minval + u * (maxval - minval)).to(device)
+        with span("key_draw"):
+            u = self._uniform01(shape)
+            return (minval + u * (maxval - minval)).to(device)
 
     def normal(self, shape, device):
         shape = tuple(shape)
-        w = _words(self.value, math.prod(shape))
-        u = (_srl(w, 11).to(torch.float64) + 0.5) * 2.0 ** -53
-        return torch.special.ndtri(u).to(torch.float32).reshape(shape).to(
-            device)
+        with span("key_draw"):
+            w = _words(self.value, math.prod(shape))
+            u = (_srl(w, 11).to(torch.float64) + 0.5) * 2.0 ** -53
+            return torch.special.ndtri(u).to(torch.float32).reshape(
+                shape).to(device)
 
     def randint(self, shape, lo, hi, device):
         r = int(hi) - int(lo)
@@ -117,10 +122,11 @@ class Key:
             raise ValueError(f"randint needs 0 < hi - lo < 2^31, got "
                              f"[{lo}, {hi})")
         shape = tuple(shape)
-        w = _words(self.value, math.prod(shape))
-        # floor(w * r / 2^64) from the words' 32-bit halves, in int64
-        v = (_srl(w, 32) * r + _srl((w & 0xFFFFFFFF) * r, 32)) >> 32
-        return (v + int(lo)).reshape(shape).to(device)
+        with span("key_draw"):
+            w = _words(self.value, math.prod(shape))
+            # floor(w * r / 2^64) from the words' 32-bit halves, in int64
+            v = (_srl(w, 32) * r + _srl((w & 0xFFFFFFFF) * r, 32)) >> 32
+            return (v + int(lo)).reshape(shape).to(device)
 
     def categorical(self, logits, shape):
         """Draws from softmax(logits) over its last axis by the Gumbel-max
@@ -128,9 +134,10 @@ class Key:
         with noise of shape `shape` + logits.shape[-1:]."""
         k = logits.shape[-1]
         tiny = torch.finfo(torch.float32).tiny
-        u = self._uniform01(tuple(shape) + (k,)).clamp_(min=tiny)
-        gumbel = (-torch.log(-torch.log(u))).to(logits.device)
-        return torch.argmax(gumbel + logits, dim=-1)
+        with span("key_draw"):
+            u = self._uniform01(tuple(shape) + (k,)).clamp_(min=tiny)
+            gumbel = (-torch.log(-torch.log(u))).to(logits.device)
+            return torch.argmax(gumbel + logits, dim=-1)
 
     def stream_seed(self) -> int:
         return (self.value ^ (self.value >> 32)) & 0xFFFFFFFF
