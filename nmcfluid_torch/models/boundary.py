@@ -80,10 +80,13 @@ def _jpipe(scene, vel, x, eps):
     return torch.where(jpipe_interior_mask()(x)[..., None], vel, 0.0)
 
 
-def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
+def apply_boundary(scene, vel, x, *, eps, t=0, key=None, group_dims=0):
     """Apply the scene's hard BCs to raw network output vel at points x.
     `key` (a key object, utils/keys.py) seeds smoke's jet jitter, folded
-    with the timestep t; the other scenes draw nothing."""
+    with the timestep t; the other scenes draw nothing. The first
+    `group_dims` axes of x index the batches of a pool group: the jitter
+    is drawn once at the shape of one batch and broadcast over them, as
+    the JAX package's draw under vmap."""
     ss = scene.scene_size
     name = scene.name
     if name == "taylorgreen":
@@ -102,8 +105,8 @@ def apply_boundary(scene, vel, x, *, eps, t=0, key=None):
             # the reference re-seeds numpy with the timestep
             # (3d/base.py:205-210); here one draw a point from the
             # timestep-folded key, as the JAX package does
-            r = 10.0 * (2.0 * key.fold_in(t).uniform(x.shape[:-1],
-                                                     x.device) - 1.0)
+            u = key.fold_in(t).uniform(x.shape[group_dims:-1], x.device)
+            r = 10.0 * (2.0 * u - 1.0)
             jet = torch.stack([0.01 * r, 0.01 * r, 0.2 + 0.01 * r], dim=-1)
             vel = torch.where(in_jet[..., None], jet, vel)
         else:

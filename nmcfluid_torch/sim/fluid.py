@@ -55,7 +55,7 @@ from ..models.siren import (SirenConfig, apply_siren, apply_siren_features,
                             apply_siren_tangents, init_siren)
 from ..parallel.mesh import points_mesh, replicate, shard_bounds
 from ..utils import spans
-from ..utils.keys import Key
+from ..utils.keys import Key, KeyGroup
 from ..wost.solver import (WalkSettings, WostScene,
                            estimate_solution_and_gradient)
 from . import sampling
@@ -243,20 +243,21 @@ class NeuralFluid:
 
     # ------------------------------------------------------------- velocity
 
-    def velocity(self, params, x, *, eps, t=0):
-        """query_velocity (base.py:158-224): raw net + scene hard BCs."""
+    def velocity(self, params, x, *, eps, t=0, group_dims=0):
+        """query_velocity (base.py:158-224): raw net + scene hard BCs;
+        `group_dims` as apply_boundary's."""
         return apply_boundary(self.scene, apply_siren(params, self.siren_cfg,
                                                       x), x, eps=eps, t=t,
-                              key=self.bc_key)
+                              key=self.bc_key, group_dims=group_dims)
 
-    def velocity_affine(self, x, *, eps, t):
+    def velocity_affine(self, x, *, eps, t, group_dims=0):
         """(A, c) with apply_boundary(raw) == A @ raw + c at x:
         A (..., D, D), c (..., D)."""
         dim = self.scene.dim
 
         def g(raw):
             return apply_boundary(self.scene, raw, x, eps=eps, t=t,
-                                  key=self.bc_key)
+                                  key=self.bc_key, group_dims=group_dims)
 
         with spans.span("bc_affine"):
             zero = torch.zeros(x.shape[:-1] + (dim,), dtype=torch.float32,
@@ -564,19 +565,52 @@ def _fit_lr_array(fluid):
                        _cosine_decay(lr, max(1, n - hold), 0.02, i - hold))
 
 
+# points a grouped pass of the pool build holds, and points times
+# primitives where the scene's boundary is a segment or triangle soup
+# (its queries hold a (points, P, D) tensor)
+_POOL_POINTS = 1 << 21
+_POOL_PAIRS = 1 << 25
+
+
+def _pool_group(fluid):
+    """Batches a grouped pass of the pool build takes: as many as
+    _POOL_POINTS points hold, and _POOL_PAIRS point-primitive pairs of a
+    soup boundary, at least one."""
+    cap = _POOL_POINTS // fluid.n_batch
+    soup = fluid.boundary
+    if isinstance(soup, (queries2d.Seg2D, queries3d.Tri3D)):
+        cap = min(cap, _POOL_PAIRS // (fluid.n_batch * soup.n.shape[0]))
+    return max(1, min(fluid.fit_pool, cap))
+
+
+def _build_pool(fluid, key, batch_fn, group):
+    """The pool (x, A, c, target, w), (K, B, ...), batch i from the key
+    key.fold_in(i), i < K = fit_pool, built `group` batches a pass
+    (`batch_fn.batches`) into preallocated tensors; each pass adds one to
+    the span sink's "pool_passes"."""
+    K = fluid.fit_pool
+    pool = None
+    for i in range(0, K, group):
+        spans.count("pool_passes")
+        # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
+        x, target, w = batch_fn.batches(
+            [key.fold_in(j) for j in range(i, min(i + group, K))])
+        out = (x,) + batch_fn.affine(x) + (target, w)
+        if pool is None:
+            pool = tuple(torch.empty((K,) + a.shape[1:], dtype=a.dtype,
+                                     device=a.device) for a in out)
+        for p, a in zip(pool, out):
+            p[i:i + a.shape[0]] = a
+    return pool
+
+
 def _fused_fit(fluid, params0, key, batch_fn):
     """Phase fit on a pool of K minibatches (fluid.py:653-685): build the
-    pool (x, A, c, target, w) from keys fold_in(key, i), i < K, run the
+    pool (x, A, c, target, w) from keys fold_in(key, i), i < K, in grouped
+    passes (_build_pool, the JAX package's lax.map over batches), run the
     fused fit, then the closed-form head solve."""
-    xs, As, cs, ts, ws = [], [], [], [], []
     with spans.span("pool_build", fluid.device):
-        # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
-        for i in range(fluid.fit_pool):
-            x, target, w = batch_fn.batch(key.fold_in(i))
-            A, c = batch_fn.affine(x)
-            for lst, a in zip((xs, As, cs, ts, ws), (x, A, c, target, w)):
-                lst.append(a)
-        pool = tuple(torch.stack(lst) for lst in (xs, As, cs, ts, ws))
+        pool = _build_pool(fluid, key, batch_fn, _pool_group(fluid))
     # with profile on, the fit's own device time (CUDA events) goes to
     # stage_times["fit_kernel"], apart from the pool build and head solve
     timed = fluid.profile and pool[0].is_cuda
@@ -648,20 +682,29 @@ def _ls_head_solve(fluid, params, key, batch_fn):
 
 class _PhaseBatches:
     """The batch function of one phase fit: `batch(key)` -> (x, target,
-    w), plus the velocity, features and affine hard-BC map at fixed eps
-    and t."""
+    w), `batches(keys)` -> their (G, B, ...) stacks, plus the velocity,
+    features and affine hard-BC map at fixed eps and t. A batch's x is
+    (B, D); the axes before those index the batches of a group. By
+    default batches() builds the batches one by one; the advection and
+    projection phases build them in one pass, their batch() taking a
+    KeyGroup."""
 
     def __init__(self, fluid, eps, t):
         self.fluid, self.eps, self.t = fluid, eps, t
 
+    def batches(self, keys):
+        return tuple(torch.stack(a) for a in zip(*map(self.batch, keys)))
+
     def velocity(self, params, x):
-        return self.fluid.velocity(params, x, eps=self.eps, t=self.t)
+        return self.fluid.velocity(params, x, eps=self.eps, t=self.t,
+                                   group_dims=x.dim() - 2)
 
     def features(self, params, x):
         return apply_siren_features(params, self.fluid.siren_cfg, x)
 
     def affine(self, x):
-        return self.fluid.velocity_affine(x, eps=self.eps, t=self.t)
+        return self.fluid.velocity_affine(x, eps=self.eps, t=self.t,
+                                          group_dims=x.dim() - 2)
 
     def points(self, kb):
         f = self.fluid
@@ -699,6 +742,9 @@ class _AdvectBatches(_PhaseBatches):
                 adv = 2.0 * adv - self.velocity(self.tilde, back)
         return pts, adv, w
 
+    def batches(self, keys):
+        return self.batch(KeyGroup(keys))
+
 
 class _ProjectBatches(_PhaseBatches):
     def __init__(self, fluid, prev, cloud, grad_p, eps, t):
@@ -711,7 +757,10 @@ class _ProjectBatches(_PhaseBatches):
         pts = self.cloud[idx]
         with spans.span("fit_targets"):
             target = self.velocity(self.prev, pts) - self.grad_p[idx]
-            return pts, target, torch.ones(f.n_batch, device=f.device)
+            return pts, target, torch.ones(idx.shape, device=f.device)
+
+    def batches(self, keys):
+        return self.batch(KeyGroup(keys))
 
 
 def _fit_source(fluid, params0, key, eps, t):

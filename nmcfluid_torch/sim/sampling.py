@@ -3,9 +3,13 @@ nmcfluid/sim/sampling.py).
 
 Grids use indexing='ij'. In scenes with obstacles `fluid_points` redraws
 the points that fall inside one for a fixed number of rounds and returns
-a validity mask, as the JAX package does.
+a validity mask, as the JAX package does. The samplers take a key or a
+KeyGroup (utils/keys.py) of G keys; a group gives (G, n, dim) points, row
+g those of its key g alone.
 """
 import torch
+
+from ..utils.keys import KeyGroup
 
 
 def grid_resolutions(scene_size, resolution):
@@ -36,7 +40,8 @@ def uniform_grid(scene_size, resolution, with_boundary=False, device="cpu"):
 
 
 def random_points(key, n, scene_size, device="cpu"):
-    """Uniform random points in the scene box (model_utils.py 2d:22-31)."""
+    """Uniform random points in the scene box (model_utils.py 2d:22-31):
+    (n, dim), or (G, n, dim) from a KeyGroup."""
     dim = len(scene_size) // 2
     u = key.uniform((n, dim), device)
     lo = torch.tensor([scene_size[2 * i] for i in range(dim)],
@@ -52,7 +57,7 @@ def training_points(key, n, scene, pattern="random", resolution=None,
     'uniform' (the cell-centered grid with the box faces) and
     'random+uniform' (half each). The grid is tiled and truncated to n
     points, as the JAX package keeps its shapes static. Returns (pts,
-    valid)."""
+    valid), with the group's axis first from a KeyGroup."""
     if pattern == "random":
         return fluid_points(key, n, scene, device=device)
     if pattern not in ("uniform", "random+uniform"):
@@ -61,16 +66,18 @@ def training_points(key, n, scene, pattern="random", resolution=None,
                         int(round(n ** (1.0 / scene.dim))),
                         with_boundary=True, device=device)
     grid = grid.reshape(-1, scene.dim)
+    lead = (len(key),) if isinstance(key, KeyGroup) else ()
 
     def tiled(m):
-        return grid.repeat(-(-m // grid.shape[0]), 1)[:m]
+        pts = grid.repeat(-(-m // grid.shape[0]), 1)[:m]
+        return (pts.expand(lead + pts.shape),
+                scene.fluid_mask(pts).expand(lead + (m,)))
     if pattern == "uniform":
-        pts = tiled(n)
-        return pts, scene.fluid_mask(pts)
+        return tiled(n)
     half = n // 2
     r, rv = fluid_points(key, n - half, scene, device=device)
-    g = tiled(half)
-    return torch.cat([r, g]), torch.cat([rv, scene.fluid_mask(g)])
+    g, gv = tiled(half)
+    return torch.cat([r, g], -2), torch.cat([rv, gv], -1)
 
 
 def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):
@@ -79,11 +86,13 @@ def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):
     key.fold_in(i) and fills the slots still invalid. Returns (pts (n,
     dim), valid (n,) bool); slots still invalid after `rounds` rounds are
     flagged for a zero loss weight (the reference shrinks the batch
-    instead, base.py:239-249). The rounds stop once every slot is valid:
-    a later round would change nothing."""
+    instead, base.py:239-249). The rounds stop once every slot is valid,
+    of every batch of a KeyGroup: a later round fills only the slots
+    still invalid, so it changes nothing there."""
     if not scene.has_obstacle:
-        return (random_points(key, n, scene.scene_size, device),
-                torch.ones(n, dtype=torch.bool, device=device))
+        pts = random_points(key, n, scene.scene_size, device)
+        return pts, torch.ones(pts.shape[:-1], dtype=torch.bool,
+                               device=device)
     pts = random_points(key.fold_in(0), n, scene.scene_size, device)
     valid = scene.fluid_mask(pts)
     for i in range(1, rounds):
@@ -91,7 +100,7 @@ def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):
             break
         cand = random_points(key.fold_in(i), n, scene.scene_size, device)
         cand_ok = scene.fluid_mask(cand)
-        pts = torch.where((~valid & cand_ok)[:, None], cand, pts)
+        pts = torch.where((~valid & cand_ok)[..., None], cand, pts)
         valid = valid | cand_ok
     return pts, valid
 

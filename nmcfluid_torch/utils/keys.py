@@ -29,6 +29,12 @@ uniform takes the top 24 bits of a word, normal the inverse normal CDF of
 its top 53 bits in float64, randint the high 64 bits of word x range
 (bias under range / 2^64), categorical the Gumbel-max rule over the
 uniforms. Each draw is the span "key_draw" (utils/spans.py).
+`KeyGroup` draws one stream for each of G keys at once, the (G,) + shape
+stack of the members' own draws bit for bit: for members of class Key
+the G word streams are computed in cache-sized blocks of rows and moved
+in one copy, so a pool build draws a group of batches in one span and
+one wait for the device; other key classes (the tests' jax.random
+replay) draw key by key.
 `stream_seed` folds the key to the fast RNG's 32-bit seed, as
 the JAX package folds its key's two words. The numbers differ from
 JAX's; a second implementation that replays `jax.random`
@@ -44,6 +50,9 @@ from .spans import span
 _M64 = (1 << 64) - 1
 _GAMMA = 0x9E3779B97F4A7C15
 _DRAW = 0x2545F4914F6CDD1D        # separates the draw words from `split`
+# words a KeyGroup's draw computes at a time: blocks of whole rows that
+# stay in the CPU's cache (one block of a whole group's words would not)
+_BLOCK_WORDS = 1 << 16
 
 
 def _mix64(x: int) -> int:
@@ -67,13 +76,36 @@ def _srl(x, s):
 def _words(value: int, n: int):
     """n words of the key `value`: splitmix64 seeded with a hash of the
     whole key, as an int64 tensor on the CPU (the bit patterns of the
-    uint64 words), computed in place."""
-    base = _mix64(value ^ _DRAW)
-    x = torch.arange(1, n + 1, dtype=torch.int64)
-    x.mul_(_i64(_GAMMA)).add_(_i64(base))
+    uint64 words)."""
+    return _words_each([value], n)[0]
+
+
+def _words_each(values, n: int):
+    """(len(values), n) words, row g those of the key values[g] (as
+    `_words`), computed in place after one broadcast add."""
+    base = torch.tensor([_i64(_mix64(v ^ _DRAW)) for v in values],
+                        dtype=torch.int64)
+    x = torch.arange(1, n + 1, dtype=torch.int64).mul_(_i64(_GAMMA))
+    x = x + base[:, None]
     x.bitwise_xor_(_srl(x, 30)).mul_(_i64(0xBF58476D1CE4E5B9))
     x.bitwise_xor_(_srl(x, 27)).mul_(_i64(0x94D049BB133111EB))
     return x.bitwise_xor_(_srl(x, 31))
+
+
+def _unit24(w):
+    """float32 uniforms in [0, 1) from words: their top 24 bits."""
+    return _srl(w, 40).to(torch.float32).mul_(2.0 ** -24)
+
+
+def _below(w, lo: int, hi: int):
+    """int64 in [lo, hi) from words: floor(w * (hi - lo) / 2^64) + lo,
+    from the words' 32-bit halves, in int64."""
+    r = int(hi) - int(lo)
+    if not 0 < r < 1 << 31:
+        raise ValueError(f"randint needs 0 < hi - lo < 2^31, got "
+                         f"[{lo}, {hi})")
+    v = (_srl(w, 32) * r + _srl((w & 0xFFFFFFFF) * r, 32)) >> 32
+    return v + int(lo)
 
 
 class Key:
@@ -100,8 +132,7 @@ class Key:
     def _uniform01(self, shape):
         """float32 uniforms in [0, 1) on the CPU: a word's top 24 bits."""
         shape = tuple(shape)
-        w = _words(self.value, math.prod(shape))
-        return _srl(w, 40).to(torch.float32).mul_(2.0 ** -24).reshape(shape)
+        return _unit24(_words(self.value, math.prod(shape))).reshape(shape)
 
     def uniform(self, shape, device, minval=0.0, maxval=1.0):
         with span("key_draw"):
@@ -117,16 +148,10 @@ class Key:
                 shape).to(device)
 
     def randint(self, shape, lo, hi, device):
-        r = int(hi) - int(lo)
-        if not 0 < r < 1 << 31:
-            raise ValueError(f"randint needs 0 < hi - lo < 2^31, got "
-                             f"[{lo}, {hi})")
         shape = tuple(shape)
         with span("key_draw"):
             w = _words(self.value, math.prod(shape))
-            # floor(w * r / 2^64) from the words' 32-bit halves, in int64
-            v = (_srl(w, 32) * r + _srl((w & 0xFFFFFFFF) * r, 32)) >> 32
-            return (v + int(lo)).reshape(shape).to(device)
+            return _below(w, lo, hi).reshape(shape).to(device)
 
     def categorical(self, logits, shape):
         """Draws from softmax(logits) over its last axis by the Gumbel-max
@@ -141,3 +166,54 @@ class Key:
 
     def stream_seed(self) -> int:
         return (self.value ^ (self.value >> 32)) & 0xFFFFFFFF
+
+
+class KeyGroup:
+    """G keys that draw as one: `uniform` and `randint` give the (G,) +
+    shape stack of each member's own draw of `shape`, bit for bit, and
+    `fold_in` folds every member. Where every member is a Key, the words
+    of all G are computed together, in blocks of rows, and the draw is one
+    copy to the device and one "key_draw" span; any other key class draws
+    key by key."""
+    __slots__ = ("keys",)
+
+    def __init__(self, keys):
+        self.keys = list(keys)
+
+    def __len__(self):
+        return len(self.keys)
+
+    def fold_in(self, data: int):
+        return KeyGroup(k.fold_in(data) for k in self.keys)
+
+    def _vectorised(self):
+        return all(type(k) is Key for k in self.keys)
+
+    def _draw(self, shape, convert, dtype):
+        """(G,) + shape of convert(words) of each member, on the CPU, the
+        rows computed a block of about _BLOCK_WORDS words at a time."""
+        n = math.prod(shape)
+        values = [k.value for k in self.keys]
+        out = torch.empty((len(values), n), dtype=dtype)
+        rows = max(1, _BLOCK_WORDS // max(1, n))
+        for i in range(0, len(values), rows):
+            out[i:i + rows] = convert(_words_each(values[i:i + rows], n))
+        return out.reshape((len(values),) + shape)
+
+    def uniform(self, shape, device, minval=0.0, maxval=1.0):
+        shape = tuple(shape)
+        if not self._vectorised():
+            return torch.stack([k.uniform(shape, device, minval, maxval)
+                                for k in self.keys])
+        with span("key_draw"):
+            return self._draw(shape, lambda w: minval + _unit24(w) * (
+                maxval - minval), torch.float32).to(device)
+
+    def randint(self, shape, lo, hi, device):
+        shape = tuple(shape)
+        if not self._vectorised():
+            return torch.stack([k.randint(shape, lo, hi, device)
+                                for k in self.keys])
+        with span("key_draw"):
+            return self._draw(shape, lambda w: _below(w, lo, hi),
+                              torch.int64).to(device)

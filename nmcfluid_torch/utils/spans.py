@@ -18,18 +18,25 @@ sink for their duration (`bound`): the fluid's `stage_times` dict when its
   kernels and a trace can label each idle gap of the device by the
   innermost span that held it.
 
+A counter (`count(name, n)`) adds n to `sink[name]` while a sink is
+bound, and does nothing else.
+
 The spans, each summed over every fit of a frame (source_fit,
 advect_fit(2), project_fit(2)), beside the stages of `_timed`:
 
-    pool_build   _fused_fit's loop over the fit_pool batches and the
-                 torch.stack (synchronized)
+    pool_build   _fused_fit's grouped passes over the fit_pool batches
+                 (_build_pool; synchronized)
     head_solve   _ls_head_solve, whole (synchronized)
     fit_targets  the target part of each phase batch, after its points
                  are drawn (host clock)
     bc_affine    the hard-BC affine map, NeuralFluid.velocity_affine
                  (host clock)
-    key_draw     each draw of utils.keys.Key: the CPU words and the copy
-                 to the device (host clock)
+    key_draw     each draw of utils.keys.Key, or of a KeyGroup of them:
+                 the CPU words and the copy to the device (host clock)
+
+and the counter
+
+    pool_passes  the pool builds' grouped passes
 
 fit_targets, bc_affine and key_draw nest inside the other two and also
 count the head solve's ls_head + 1 batches, so the pool's own points take
@@ -71,6 +78,12 @@ def bound(sink):
         yield
     finally:
         _state = prev
+
+
+def count(name, n=1):
+    """Add n to the bound sink's `name`; nothing while no sink is bound."""
+    if _state is not None and _state[0] is not None:
+        _state[0][name] = _state[0].get(name, 0) + n
 
 
 def span(name, device=None):

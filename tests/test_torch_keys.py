@@ -5,7 +5,9 @@ Every draw depends on all 64 bits of a key: two keys equal in their low
 on the CPU, and only then moves them to the requested device. Each draw
 has the distribution it names, at fixed sizes and keys, within the
 bounds stated in each test. The key tree (split, fold_in, stream_seed)
-keeps the values it had before the draws were rewritten.
+keeps the values it had before the draws were rewritten. A KeyGroup's
+draws are its members' own, stacked, bit for bit: vectorised over Keys,
+key by key over any other key class.
 """
 import math
 
@@ -14,8 +16,8 @@ import pytest
 import torch
 from scipy import stats
 
-from nmcfluid_torch.utils import keys
-from nmcfluid_torch.utils.keys import Key
+from nmcfluid_torch.utils import keys, spans
+from nmcfluid_torch.utils.keys import Key, KeyGroup
 
 torch.set_num_threads(1)
 
@@ -167,3 +169,54 @@ def test_uniform_and_randint_read_the_same_words():
     u = k.uniform((32,), "cpu")
     r = k.randint((32,), 0, 1 << 24, "cpu")
     np.testing.assert_array_equal(u.numpy() * (1 << 24), r.numpy())
+
+
+GROUP_DRAWS = {
+    "uniform": lambda k: k.uniform((5, 3), "cpu", -2.0, 3.0),
+    "randint": lambda k: k.randint((7,), 3, 1000003, "cpu"),
+}
+
+
+class _OtherKey(Key):
+    """A key class of the same tree that a KeyGroup does not vectorise."""
+    __slots__ = ()
+    draws = 0
+
+    def fold_in(self, data):
+        return _OtherKey(super().fold_in(data).value)
+
+    def uniform(self, *a, **k):
+        _OtherKey.draws += 1
+        return super().uniform(*a, **k)
+
+    def randint(self, *a, **k):
+        _OtherKey.draws += 1
+        return super().randint(*a, **k)
+
+
+@pytest.mark.parametrize("kind", sorted(GROUP_DRAWS))
+def test_group_draws_are_each_keys_own(kind, monkeypatch):
+    """A KeyGroup of Keys (the top bit set in some) draws, in one span,
+    the per-key draws stacked, bit for bit, and so does its fold_in; a
+    group of another key class falls back to drawing key by key and
+    gives the same numbers."""
+    draw = GROUP_DRAWS[kind]
+    values = [0, 7, (1 << 63) + 11, (1 << 64) - 1, 123456789012345]
+    members = [Key(v) for v in values]
+    want = torch.stack([draw(k) for k in members])
+    opened, span = [], keys.span
+    monkeypatch.setattr(keys, "span", lambda name: opened.append(name)
+                        or span(name))
+    sink = {}
+    with spans.bound(sink):
+        got = draw(KeyGroup(members))
+    assert opened == ["key_draw"] and sink["key_draw"] > 0.0
+    monkeypatch.undo()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    folded = torch.stack([draw(k.fold_in(3)) for k in members])
+    assert torch.equal(draw(KeyGroup(members).fold_in(3)), folded)
+    _OtherKey.draws = 0
+    other = KeyGroup(_OtherKey(v) for v in values)
+    assert torch.equal(draw(other), want)
+    assert _OtherKey.draws == len(values)
+    assert torch.equal(draw(other.fold_in(3)), folded)

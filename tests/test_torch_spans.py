@@ -7,14 +7,18 @@ fit_targets, bc_affine, key_draw), each held inside what holds it, and
 gives the same parameters to the bit; under torch.profiler with profile
 off, the spans are "stage:" ranges nested inside the fit's stage; an
 instance override of `_timed`, as the benchmark installs, still sees every
-stage.
+stage. The counter `count` adds to a bound sink only, and a step counts
+its pool builds' grouped passes, 2 x ceil(fit_pool / G).
 """
+import math
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import _torch_parity  # noqa: F401  (one torch thread per worker)
 from nmcfluid_torch.scenes import get_scene
+from nmcfluid_torch.sim import fluid as fluid_mod
 from nmcfluid_torch.sim.fluid import NeuralFluid
 from nmcfluid_torch.utils import spans
 from nmcfluid_torch.utils.keys import Key
@@ -49,6 +53,41 @@ def test_tracing_off_reads_no_clock_opens_no_range(monkeypatch):
     f = _fluid("smoke")
     _step(f)
     assert f.stage_times == {}
+
+
+def test_count_costs_nothing_with_nothing_bound(monkeypatch):
+    """As a span: with nothing bound a count reads no clock, opens no
+    range and records nothing; under a profiler with no sink it records
+    nothing either; with a sink bound it adds to it."""
+    for name in ("_clock", "_sync", "_range"):
+        monkeypatch.setattr(spans, name, _refuse)
+    assert spans._state is None
+    spans.count("pool_passes")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.bound(None):
+            spans.count("pool_passes")
+    sink = {}
+    with spans.bound(sink):
+        spans.count("pool_passes")
+        spans.count("pool_passes", 3)
+    spans.count("pool_passes")
+    assert sink == {"pool_passes": 4}
+
+
+@pytest.mark.parametrize("points", [None, 2 * 64])
+@pytest.mark.parametrize("scene", ["taylorgreen", "smoke"])
+def test_a_step_counts_its_pool_passes(scene, points, monkeypatch):
+    """fit_pool 3 of 64-point batches: one pass a fit at the module's
+    bound, two (a group of 2, then of 1) at 128 points a pass."""
+    if points:
+        monkeypatch.setattr(fluid_mod, "_POOL_POINTS", points)
+    f = _fluid(scene)
+    group = fluid_mod._pool_group(f)
+    assert group == (2 if points else 3)
+    s = f.add_source(f.init_state(0))
+    f.profile = True
+    f.step(s)
+    assert f.stage_times["pool_passes"] == 2 * math.ceil(3 / group)
 
 
 @pytest.mark.parametrize("scene", ["taylorgreen", "smoke"])
