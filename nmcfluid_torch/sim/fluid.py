@@ -964,7 +964,8 @@ def _pressure_solve_spectral(fluid, div_grid, key):
     points drawn with `key` in one draw, with the walk's boundary masking.
     Where the scene has one circle (karman), a cylinder along y (karman3d)
     or a sphere (smoke_obs) and sigma > 0, a modal correction cancels the
-    box solve's Neumann residual on the obstacle."""
+    box solve's Neumann residual on the obstacle (the span
+    "obstacle_modes", its fit and evaluation, synchronized)."""
     scene = fluid.scene
     ss = scene.scene_size
     pts, valid = sampling.fluid_points(key, fluid.n_pressure, scene,
@@ -979,21 +980,22 @@ def _pressure_solve_spectral(fluid, div_grid, key):
             and scene.absorption > 0.0):
         args = (scene.obstacle_center, scene.obstacle_radius,
                 scene.absorption)
-        if scene.dim == 2:
-            from ..ops.circle_modes import (eval_circle_correction,
-                                            fit_circle_correction)
-            coeffs = fit_circle_correction(g_grid, ss, *args)
-            q, grad_q = eval_circle_correction(coeffs, pts, *args)
-        elif scene.obstacle_axis == "y":      # karman3d's cylinder
-            from ..ops.cylinder_modes import (eval_cylinder_correction,
-                                              fit_cylinder_correction)
-            coeffs = fit_cylinder_correction(g_grid, ss, *args)
-            q, grad_q = eval_cylinder_correction(coeffs, pts, ss, *args)
-        else:                                 # smoke_obs's sphere
-            from ..ops.sphere_modes import (eval_sphere_correction,
-                                            fit_sphere_correction)
-            coeffs = fit_sphere_correction(g_grid, ss, *args)
-            q, grad_q = eval_sphere_correction(coeffs, pts, *args)
+        with spans.span("obstacle_modes", fluid.device):
+            if scene.dim == 2:
+                from ..ops.circle_modes import (eval_circle_correction,
+                                                fit_circle_correction)
+                coeffs = fit_circle_correction(g_grid, ss, *args)
+                q, grad_q = eval_circle_correction(coeffs, pts, *args)
+            elif scene.obstacle_axis == "y":      # karman3d's cylinder
+                from ..ops.cylinder_modes import (eval_cylinder_correction,
+                                                  fit_cylinder_correction)
+                coeffs = fit_cylinder_correction(g_grid, ss, *args)
+                q, grad_q = eval_cylinder_correction(coeffs, pts, ss, *args)
+            else:                                 # smoke_obs's sphere
+                from ..ops.sphere_modes import (eval_sphere_correction,
+                                                fit_sphere_correction)
+                coeffs = fit_sphere_correction(g_grid, ss, *args)
+                q, grad_q = eval_sphere_correction(coeffs, pts, *args)
         p = p + q
         grad_p = grad_p + grad_q
     return (pts, valid) + _mask_pressure(fluid, pts, valid, p, grad_p)

@@ -9,6 +9,7 @@ g those of its key g alone.
 """
 import torch
 
+from ..utils import spans
 from ..utils.keys import KeyGroup
 
 
@@ -88,17 +89,21 @@ def fluid_points(key, n, scene, rounds: int = 8, device="cpu"):
     flagged for a zero loss weight (the reference shrinks the batch
     instead, base.py:239-249). The rounds stop once every slot is valid,
     of every batch of a KeyGroup: a later round fills only the slots
-    still invalid, so it changes nothing there."""
+    still invalid, so it changes nothing there. The points a later round
+    draws, the whole batch or group, add to the span counter
+    "resample_points" (0 where one round did)."""
     if not scene.has_obstacle:
         pts = random_points(key, n, scene.scene_size, device)
         return pts, torch.ones(pts.shape[:-1], dtype=torch.bool,
                                device=device)
     pts = random_points(key.fold_in(0), n, scene.scene_size, device)
     valid = scene.fluid_mask(pts)
+    spans.count("resample_points", 0)
     for i in range(1, rounds):
         if bool(valid.all()):
             break
         cand = random_points(key.fold_in(i), n, scene.scene_size, device)
+        spans.count("resample_points", valid.numel())
         cand_ok = scene.fluid_mask(cand)
         pts = torch.where((~valid & cand_ok)[..., None], cand, pts)
         valid = valid | cand_ok

@@ -22,7 +22,8 @@ A counter (`count(name, n)`) adds n to `sink[name]` while a sink is
 bound, and does nothing else.
 
 The spans, each summed over every fit of a frame (source_fit,
-advect_fit(2), project_fit(2)), beside the stages of `_timed`:
+advect_fit(2), project_fit(2)) or its projections, beside the stages of
+`_timed`:
 
     pool_build   _fused_fit's grouped passes over the fit_pool batches
                  (_build_pool; synchronized)
@@ -33,10 +34,19 @@ advect_fit(2), project_fit(2)), beside the stages of `_timed`:
                  (host clock)
     key_draw     each draw of utils.keys.Key, or of a KeyGroup of them:
                  the CPU words and the copy to the device (host clock)
+    obstacle_modes
+                 the spectral solve's modal correction of an obstacle
+                 (circle, cylinder or sphere): its fit to the box
+                 solve's Neumann residual and its evaluation at the
+                 pressure cloud (synchronized; nested in spectral_solve)
 
-and the counter
+and the counters
 
     pool_passes  the pool builds' grouped passes
+    resample_points
+                 the points sim/sampling.py::fluid_points draws in its
+                 rounds after the first (scenes with an obstacle; 0 where
+                 one round filled every slot)
 
 fit_targets, bc_affine and key_draw nest inside the other two and also
 count the head solve's ls_head + 1 batches, so the pool's own points take
