@@ -251,9 +251,10 @@ def fit_build_report(log, plan, threads):
     kernels, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S*fit_persistentILi(\d)"
-                      r"ELb([01])E\S*)'", line)
+                      r"ELb([01])ELi(\d)E\S*)'", line)
         if m:
-            cur = {"npw": int(m.group(2)), "recompute": m.group(3) == "1"}
+            cur = {"npw": int(m.group(2)), "recompute": m.group(3) == "1",
+                   "pass_tiles": int(m.group(4))}
             kernels.append(cur)
             continue
         if cur is None:
@@ -268,9 +269,11 @@ def fit_build_report(log, plan, threads):
             cur["registers"] = int(m.group(1))
     if not kernels:
         raise AssertionError("no fit kernel in the ptxas report")
-    for k in sorted(kernels, key=lambda k: (k["recompute"], k["npw"])):
+    for k in sorted(kernels, key=lambda k: (k["recompute"], k["npw"],
+                                            k["pass_tiles"])):
         print(f"fit_persistent<H padded to {32 * k['npw']}, "
-              f"{'recompute' if k['recompute'] else 'store'}>: "
+              f"{'recompute' if k['recompute'] else 'store'}, "
+              f"{k['pass_tiles']} tiles a pass>: "
               f"{k.get('registers')} registers, {k.get('stack')} B stack, "
               f"{k.get('spill_stores')} B spill stores, "
               f"{k.get('spill_loads')} B spill loads", flush=True)
@@ -628,8 +631,9 @@ def tg_stage_check(fluid):
 
 
 # the paths after Taylor-Green: (scene, steps, fit-kernel atol, the fit
-# plan's (recompute, weight buffers, tiles a block), bound on the source
-# fit's relative squared error, band on the energy ratio after the steps).
+# plan's (recompute, weight buffers, tiles a block, tiles a pass), bound
+# on the source fit's relative squared error, band on the energy ratio
+# after the steps).
 # Both readings are taken over the free region (free_region), where a
 # network that outputs zero reads an error of 1 and a ratio of 0 and so
 # crosses both bounds; the untrained network reads errors of 1.01 / 537 /
@@ -653,12 +657,12 @@ def tg_stage_check(fluid):
 # the CLI's fresh-batch run walk one chunk and the mesh check 100 walks
 # (PERF.md section 6).
 PATHS = (
-    ("karman", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
-    ("jpipe", 1, 1e-5, (False, 1, 4), 5e-2, (0.5, 2.0), 256),
-    ("smoke", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
-    ("karman3d", 1, 1.2e-5, (False, 1, 4), 5e-2, (0.5, 2.0), None),
-    ("smoke_obs", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
-    ("vortex_collide", 1, 1e-3, (False, 2, 4), 0.5, (0.25, 2.0), None),
+    ("karman", 1, 1e-5, (False, 1, 4, 1), 5e-2, (0.5, 2.0), 256),
+    ("jpipe", 1, 1e-5, (False, 1, 4, 1), 5e-2, (0.5, 2.0), 256),
+    ("smoke", 1, 1e-3, (False, 1, 4, 2), 0.5, (0.25, 2.0), None),
+    ("karman3d", 1, 1.2e-5, (False, 1, 4, 1), 5e-2, (0.5, 2.0), None),
+    ("smoke_obs", 1, 1e-3, (False, 1, 4, 2), 0.5, (0.25, 2.0), None),
+    ("vortex_collide", 1, 1e-3, (False, 1, 4, 2), 0.5, (0.25, 2.0), None),
 )
 
 
@@ -711,12 +715,14 @@ def path_phase(name, n_steps, atol, plan_mode, err_bound, band,
     fluid = tfluid.NeuralFluid(scene, device="cuda",
                                wost_resolution=wost_resolution)
     plan = _plan(fk, fluid)
-    if (plan.recompute, plan.n_wbuf, plan.tiles_per_block) != plan_mode:
+    if (plan.recompute, plan.n_wbuf, plan.tiles_per_block,
+            plan.pass_tiles) != plan_mode:
         raise AssertionError(f"{name} fit plan {plan}")
     print(f"fit kernel at {name} shapes: {plan.G} blocks x {fk._NT} "
-          f"threads, {plan.tiles_per_block} tiles a block, store mode, "
-          f"{plan.n_wbuf} weight buffers, {plan.smem_bytes} B dynamic "
-          f"shared memory a block", flush=True)
+          f"threads, {plan.tiles_per_block} tiles a block, "
+          f"{plan.pass_tiles} a pass ({'4 x 4' if plan.wide else '2 x 4'} "
+          f"micro-tiles), store mode, {plan.n_wbuf} weight buffers, "
+          f"{plan.smem_bytes} B dynamic shared memory a block", flush=True)
     err, kernel_ms, plain_ms = check_fit_kernel(
         fluid, fk, tfluid, fluid.init_state(1).params, atol,
         need_offdiag=name == "jpipe",

@@ -11,14 +11,18 @@
 // cudaLaunchCooperativeKernel refuses anything else) and loop over the
 // n_iters iterations together. Block b owns
 //   - the point tiles [b * tiles_per_block, ...) of every batch (T = 32
-//     points a tile; Taylor-Green: one tile a block, 128 blocks), and
+//     points a tile; Taylor-Green: one tile a block, 128 blocks), taken
+//     pass_tiles (1 or 2) at a time through every layer, and
 //   - the parameter slice [b * chunk, ...) with its Adam moments m and v,
 //     which stay in shared memory for the whole fit (what VMEM did on the
 //     TPU, spread over the SMs) unless the slice is too large (below).
 // One iteration:
 //   (a) read the current parameters (L2-resident) into shared memory;
-//   (b) forward and backward over the block's tiles; the block sums its
-//       tiles' gradients in tile order in its own partial-gradient row;
+//   (b) forward and backward over the block's tiles, a pass at a time;
+//       the block sums its tiles' gradients in tile order in its own
+//       partial-gradient row (column sums over points per 32-point tile,
+//       so that a pass of two tiles adds the same floats in the same
+//       order as two passes of one);
 //   (c) the row and the block's loss go to global memory;
 //   (d) grid barrier;
 //   (e) each block sums its slice over the n_work rows in a fixed order,
@@ -31,13 +35,15 @@
 //
 // Layer products. Forward z = h W and input gradient g_z W^T take points
 // as rows and units as columns; the weight gradient h^T g_z takes fan-in
-// as rows, units as columns and sums over the tile's points. Each thread
-// sums a register micro-tile in plain f32 FMA, in order over k: 2 points
-// x 2 * NPW adjacent units (H padded to 32 * NPW), or 2 * NPW x 2 * NPW
-// adjacent (fan-in, unit) pairs for the weight gradient, so that each
-// shared load is a float4 (or float2) row segment. Shared-load
-// instructions, not FMAs, bound the products: fewer and wider loads per
-// FMA is what the micro-tiles buy. (A 3xTF32 mma.sync route was measured
+// as rows, units as columns and sums over the pass's points. Each thread
+// sums a register micro-tile in plain f32 FMA, in order over k, so that
+// each shared load is a float4 (or float2) row segment: where a pass holds
+// 4,096 outputs (a 32-point tile at H padded to 128, or two tiles at 64:
+// "wide") 4 points x 4 units (prod_wide), else 2 points x 2 * NPW adjacent
+// units (H padded to 32 * NPW; prod_points); 2 * NPW x 2 * NPW adjacent
+// (fan-in, unit) pairs for the weight gradient. Shared-load instructions,
+// not FMAs, bound the products: fewer and wider loads per FMA is what the
+// micro-tiles buy. (A 3xTF32 mma.sync route was measured
 // and dropped: slower here, and outside the kernel-vs-twin tolerance at
 // B = 16384; PERF.md.) Operands live in shared memory in an XOR-swizzled
 // layout (sw() below) that is conflict-free for the row-wise and the
@@ -54,14 +60,16 @@
 // Hidden weights, each with its bias, are staged per layer with cp.async
 // into a ring of one or two buffers (two: the next layer's load overlaps
 // this layer's products, and the last two layers of the forward pass
-// serve the backward pass without a reload). A tile's pool data (x, A, c,
-// target, w) is fetched with cp.async while the block finishes the tile
-// before it, or, for the first tile of an iteration, while it waits at
-// the barriers. The Adam step takes its slice in passes of at most
+// serve the backward pass without a reload; one: the next layer's load
+// is issued after this layer's epilogue, which measured faster than
+// issuing it behind a barrier after the product). A pass's pool data (x,
+// A, c, target, w) is fetched with cp.async while the block finishes the
+// pass before it, or, for the first pass of an iteration, while it waits
+// at the barriers. The Adam step takes its slice in passes of at most
 // pass_cols columns; m and v stay in shared memory unless they do not fit
 // beside the rest, and then live in global memory.
 //
-// The launch plan (tile size, G, tiles and parameter range per block,
+// The launch plan (G, tiles and parameter range per block, tiles a pass,
 // buffers, shared-memory bytes) is computed by
 // sim/fitkernel.py::fit_plan and passed in as an int64 array; this file
 // only checks it.
@@ -75,7 +83,7 @@
 namespace {
 
 constexpr int NT = 256;      // threads per block: 8 warps, 2 (M) x 4 (N)
-constexpr int T = 32;        // points per tile: 16 rows per warp row
+constexpr int T = 32;        // points per tile, the column sums' unit
 constexpr float OMEGA = 30.0f;
 constexpr float B1 = 0.9f;
 constexpr float B2 = 0.999f;
@@ -95,15 +103,15 @@ enum Phase { PH_FIRST, PH_FWD_PROD, PH_FWD_EPI, PH_HEAD, PH_BWD_WGRAD,
 // Field order of the plan array (sim/fitkernel.py::_PLAN_FIELDS).
 enum PlanField {
   F_D_IN, F_D_OUT, F_H, F_LH, F_B, F_K, F_N_ITERS, F_HP, F_N_PARAMS,
-  F_N_TILES, F_TILES_PER_BLOCK, F_N_WORK, F_G, F_CHUNK, F_PASS_COLS,
-  F_N_WBUF, F_RECOMPUTE, F_MOMENTS_GLOBAL, F_LD_PART, F_ROW_GROUPS,
-  F_SMEM_BYTES, N_PLAN_FIELDS
+  F_N_TILES, F_TILES_PER_BLOCK, F_PASS_TILES, F_N_WORK, F_G, F_CHUNK,
+  F_PASS_COLS, F_N_WBUF, F_RECOMPUTE, F_MOMENTS_GLOBAL, F_LD_PART,
+  F_ROW_GROUPS, F_SMEM_BYTES, N_PLAN_FIELDS
 };
 
 struct Plan {
   int D_in, D_out, H, Lh, B, K, n_iters, Hp;
   long long n_params;
-  int n_tiles, tiles_per_block, n_work, G, chunk, pass_cols, n_wbuf,
+  int n_tiles, tiles_per_block, pass_tiles, n_work, G, chunk, pass_cols, n_wbuf,
       recompute, moments_global;
   long long ld_part;
   int row_groups;
@@ -116,6 +124,7 @@ struct Args {
   float *part, *loss_part, *loss_out;
   unsigned* barrier;
   float* zstash;       // recompute: (n_work, Lh + 1, T, Hp), else null
+                       // (a recompute plan takes one tile a pass)
   float* moments;      // moments_global: (G, 2, chunk) zeroed, else null
   long long* phases;   // null, or N_PHASES + 2 zeroed int64 (Phase)
   Plan p;
@@ -131,20 +140,21 @@ struct Smem {
 __host__ __device__ inline Smem smem_layout(const Plan& p) {
   Smem s;
   long long o = 0;
-  const long long TH = (long long)T * p.Hp;
+  const long long P = (long long)T * p.pass_tiles;  // points a pass
+  const long long PH = P * p.Hp;
   const int nbuf = p.Lh > 0 ? p.n_wbuf : 0;
-  s.act = o;  o += (p.recompute ? 5 : 2 * (p.Lh + 1)) * TH;
+  s.act = o;  o += (p.recompute ? 5 : 2 * (p.Lh + 1)) * PH;
   s.wbuf = o; o += nbuf * (long long)p.Hp * p.Hp;
   s.bh = o;   o += nbuf * (long long)p.Hp;  // each buffer's bias
   s.fs = o;   o += 4LL * p.Hp;              // w_first | b_first, flat
   s.hs = o;   o += 4LL * p.Hp + 4;          // w_out | b_out, flat
-  s.X = o;    o += 4 * T;                   // the tile's pool data:
-  s.PA = o;   o += 9 * T;                   //   x (T, 4), A (T, Do, Do),
-  s.PC = o;   o += 3 * T;                   //   c, target (T, Do), w (T)
-  s.PT = o;   o += 3 * T;
-  s.PW = o;   o += T;
-  s.GR = o;   o += 4 * T;                   // (T, 4) gradient wrt raw
-  s.red = o;  o += 32;                      // per-warp loss sums
+  s.X = o;    o += 4 * P;                   // the pass's pool data:
+  s.PA = o;   o += 9 * P;                   //   x (P, 4), A (P, Do, Do),
+  s.PC = o;   o += 3 * P;                   //   c, target (P, Do), w (P)
+  s.PT = o;   o += 3 * P;
+  s.PW = o;   o += P;
+  s.GR = o;   o += 4 * P;                   // (P, 4) gradient wrt raw
+  s.red = o;  o += 32;                      // per-warp loss sums a tile
   s.m = o;    o += p.moments_global ? 0 : 2LL * p.chunk;  // m | v
   s.rsum = o; o += (long long)p.row_groups * p.pass_cols;  // group sums
   s.total = o;
@@ -155,7 +165,10 @@ __host__ __device__ inline Smem smem_layout(const Plan& p) {
 // 0. The accesses read (r0 + g, c0 + t) or (r0 + t, c0 + g) over the warp
 // (g = lane / 4 < 8, t = lane % 4, r0 and c0 multiples of 4), scalars or
 // float2 / float4 along c: XOR-ing c with ((r & 3) << 3) | (r & 4) puts
-// each on distinct banks. Groups of 4 along c stay contiguous.
+// each on distinct banks. Groups of 4 along c stay contiguous. The wide
+// products' float4 loads read, in each quarter-warp, one row's eight
+// quads of a 32-column block, or one quad of eight consecutive rows (r0 a
+// multiple of 8), which the XOR also puts on distinct banks.
 __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
 __device__ __forceinline__ int sw(int r, int c, int ld) {
   return r * ld + (c ^ swz(r));
@@ -274,22 +287,27 @@ __device__ void stage_hidden(float* dst, float* bh, const float* params,
 struct Act {
   float* base;
   float* zs;
-  int TH, Lh, recompute;
+  int PH, Lh, recompute;   // PH: a layer's floats over a pass
   __device__ float* S(int l) const {
-    return base + (long long)(recompute ? 3 + (l & 1) : l) * TH;
+    return base + (long long)(recompute ? 3 + (l & 1) : l) * PH;
   }
   __device__ float* C(int l) const {
-    return base + (long long)(recompute ? l % 3 : Lh + 1 + l) * TH;
+    return base + (long long)(recompute ? l % 3 : Lh + 1 + l) * PH;
   }
-  __device__ float* Z(int l) const { return zs + (long long)l * TH; }
+  __device__ float* Z(int l) const { return zs + (long long)l * PH; }
 };
+
+// s, c = sin(30 z), cos(30 z): the forward epilogues' one call site
+__device__ __forceinline__ void sincos30(float z, float& s, float& c) {
+  sincosf(OMEGA * z, &s, &c);
+}
 
 // Forward epilogue of one unit: S <- sin(30 z), and C <- cos(30 z) (store)
 // or Z <- z (recompute).
 __device__ __forceinline__ void put_act(const Act& a, int l, int idx,
                                         float z) {
   float s, c;
-  sincosf(OMEGA * z, &s, &c);
+  sincos30(z, s, c);
   a.S(l)[idx] = s;
   if (a.recompute) __stcg(a.Z(l) + idx, z);
   else a.C(l)[idx] = c;
@@ -306,10 +324,10 @@ __device__ __forceinline__ void prepare(const Act& a, int l, int idx) {
 }
 
 // Recompute mode: cp.async of layer l's z from the stash into C(l), in the
-// same swizzled layout, 16 bytes a copy (TH is a multiple of 4; the stash
+// same swizzled layout, 16 bytes a copy (PH is a multiple of 4; the stash
 // was written through L2). Commits one cp.async group.
 __device__ __forceinline__ void unstash(const Act& a, int l) {
-  for (int e = 4 * threadIdx.x; e < a.TH; e += 4 * NT)
+  for (int e = 4 * threadIdx.x; e < a.PH; e += 4 * NT)
     cp_async16(a.C(l) + e, a.Z(l) + e);
   cp_async_commit();
 }
@@ -404,15 +422,84 @@ __device__ __forceinline__ void prod_points(const float* A, const float* W,
   }
 }
 
-// Weight gradient of hidden layer h over one tile, added to the block's
-// partial row: gW[i][o] (+)= sum_p S[p][i] Gz[p][o] (fan-in i as rows,
-// units o as columns, the tile's 32 points summed in order). The row's
-// earlier tiles enter as the sum's start. Thread (ri, ci) = (2 warp +
-// lane / 16, lane % 16) owns rows [R ri, R ri + R) and columns [R ci, R ci
-// + R), R = 2 * NPW.
+// The wide products' micro-tiles, where a pass holds P x Hp = 4,096
+// outputs: warp w takes points 16 (w % MW) and units 32 (w / MW), MW = P /
+// 16 (2 x 4 warps at Hp = 128, 4 x 2 at two tiles of Hp = 64); lane (lm,
+// ln) = (lane / 8, lane % 8) takes points m0 + lm + 4 i and units n0 + 4
+// ln + j (forward: one float4 of a weight row) or n0 + ln + 8 j (input
+// gradient: eight consecutive weight rows a quarter-warp), i, j < 4.
+template <int P>
+__device__ __forceinline__ int wide_row(int warp, int lane, int i) {
+  return 16 * (warp % (P / 16)) + (lane >> 3) + 4 * i;
+}
+template <int P, bool WT>
+__device__ __forceinline__ int wide_col(int warp, int lane, int j) {
+  const int n0 = 32 * (warp / (P / 16)), ln = lane & 7;
+  return WT ? n0 + ln + 8 * j : n0 + 4 * ln + j;
+}
+
+// acc (P x Hp over the block, P Hp = 4,096) = A (P x Hp, swizzled) . B as
+// in prod_points, acc[i][j] at (wide_row(i), wide_col<WT>(j)): per 4 k, 4
+// float4 loads of A (each a broadcast within its quarter-warp) and 4 of W
+// for 64 FMAs.
+template <int P, int Hp, bool WT>
+__device__ __forceinline__ void prod_wide(const float* A, const float* W,
+                                          float (&acc)[4][4]) {
+  static_assert(P * Hp == 4096, "a wide pass holds 4,096 outputs");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* Ar[4];
+  int sr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = wide_row<P>(warp, lane, i);
+    Ar[i] = A + r * Hp;
+    sr[i] = swz(r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  const int c0 = wide_col<P, false>(warp, lane, 0);
+#pragma unroll 2
+  for (int k4 = 0; k4 < Hp; k4 += 4) {
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load_row<4>(x[i], Ar[i], k4, sr[i]);
+    if constexpr (!WT) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float w[4];
+        load_row<4>(w, W + (k4 + kk) * Hp, c0, swz(k4 + kk));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(x[i][kk], w[j], acc[i][j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wide_col<P, true>(warp, lane, j);
+        float y[4];
+        load_row<4>(y, W + c * Hp, k4, swz(c));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[i][j] = fmaf(x[i][kk], y[kk], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Weight gradient of hidden layer h over a pass's first n_rows points,
+// added to the block's partial row: gW[i][o] (+)= sum_p S[p][i] Gz[p][o]
+// (fan-in i as rows, units o as columns, the points summed in order). The
+// row's earlier tiles enter as the sum's start. Thread (ri, ci) = (2 warp
+// + lane / 16, lane % 16) owns rows [R ri, R ri + R) and columns [R ci, R
+// ci + R), R = 2 * NPW.
 template <int NPW>
 __device__ __forceinline__ void prod_wgrad(const float* S, const float* Gz,
-                                           int H, float* grow, bool first) {
+                                           int H, float* grow, bool first,
+                                           int n_rows) {
   constexpr int Hp = 32 * NPW;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int R = 2 * NPW;
@@ -445,8 +532,9 @@ __device__ __forceinline__ void prod_wgrad(const float* S, const float* Gz,
     for (int b = 0; b < R; ++b)
       if (o0 + b < H) acc[a][b] = __ldcg(src + b);
   }
-#pragma unroll 2
-  for (int pp = 0; pp < T; ++pp) {
+  // (at H padded to 96 one point a step: two unrolled spill registers)
+#pragma unroll (NPW == 3 ? 1 : 2)
+  for (int pp = 0; pp < n_rows; ++pp) {
     float sv[R], gv[R];
     load_row<R>(sv, S + pp * Hp, i0, swz(pp));
     load_row<R>(gv, Gz + pp * Hp, o0, swz(pp));
@@ -488,28 +576,35 @@ __device__ __forceinline__ float col_sum(float v) {
   return v;
 }
 
-// out (+)= v in the block's partial row (v alone for the first tile).
-__device__ __forceinline__ void add_row(float* dst, float v, bool first) {
-  __stcg(dst, first ? v : __ldcg(dst) + v);
+// An entry of the block's partial row plus a pass's first tile's sum v (v
+// alone for the block's first tile); the pass's later tiles' sums are
+// added to it in order, and it is stored once.
+__device__ __forceinline__ float row_start(const float* dst, float v,
+                                           bool first) {
+  return first ? v : __ldcg(dst) + v;
 }
 
 // NPW: H padded to 32 * NPW. RC: the plan's recompute, fixed at compile
-// time so that the store path carries none of the stash's code.
-template <int NPW, bool RC>
+// time so that the store path carries none of the stash's code. NTP: the
+// plan's pass_tiles.
+template <int NPW, bool RC, int NTP>
 __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
   extern __shared__ __align__(16) float sm[];
   const Plan& p = a.p;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   constexpr int Hp = 32 * NPW;            // H padded (fit_run checks p.Hp)
-  constexpr int TH = T * Hp;
-  // threads that share one column in the column sums over the tile's
+  constexpr int P = NTP * T;              // points a pass
+  constexpr int PH = P * Hp;
+  constexpr bool WIDE = PH == 4096;       // 4 x 4 micro-tiles (prod_wide)
+  static_assert(!RC || NTP == 1, "a recompute plan takes one tile a pass");
+  // threads that share one column in the column sums over a tile's
   // points: the largest power of two with CR * Hp <= NT
   constexpr int CR = NT / Hp >= 8 ? 8 : NT / Hp >= 4 ? 4 : NT / Hp >= 2 ? 2 : 1;
   const int H = p.H, Lh = p.Lh, Di = p.D_in, Do = p.D_out;
   const Smem L = smem_layout(p);
   const int b = blockIdx.x;
-  const Act act{sm + L.act, a.zstash + (long long)b * (Lh + 1) * TH, TH, Lh,
+  const Act act{sm + L.act, a.zstash + (long long)b * (Lh + 1) * PH, PH, Lh,
                 RC};
   float* wbuf = sm + L.wbuf;
   float* bh = sm + L.bh;
@@ -527,12 +622,18 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
   const long long q1 = min(q0 + p.chunk, p.n_params);
   float* prow = a.part + (long long)b * p.ld_part;
 
-  // A tile's pool data into X, PA, PC, PT, PW (one cp.async group); rows
-  // past the batch get x = 0 (finite activations, and GR = 0 drops them).
+  // The pass's tiles (up to NTP, the block's last pass may hold fewer)
+  // and its points in the batch.
+  auto tiles_in = [&](int tile) { return min(NTP, tile1 - tile); };
+  auto points_in = [&](int tile) {
+    return min(tiles_in(tile) * T, p.B - tile * T);
+  };
+  // A pass's pool data into X, PA, PC, PT, PW (one cp.async group); rows
+  // past its points get x = 0 (finite activations, and GR = 0 drops them).
   auto fetch_pool = [&](int it, int tile) {
     const long long j = it % p.K, q = j * p.B + (long long)tile * T;
-    const int n_pts = min(T, p.B - tile * T);
-    for (int e = tid; e < T * Di; e += NT) {
+    const int n_pts = points_in(tile);
+    for (int e = tid; e < P * Di; e += NT) {
       const int pp = e / Di, k = e - pp * Di;
       if (pp < n_pts) cp_async4(X + pp * 4 + k, a.x + q * Di + e);
       else X[pp * 4 + k] = 0.0f;
@@ -593,16 +694,16 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
       };
       float lblock = 0.0f;
 
-      for (int tile = tile0; tile < tile1; ++tile) {
+      for (int tile = tile0; tile < tile1; tile += NTP) {
         const bool first = tile == tile0;
-        const int p0 = tile * T;
-        const int n_pts = min(T, p.B - p0);
+        const int nt = NTP == 1 ? 1 : tiles_in(tile);
+        const int n_pts = points_in(tile);
         if (Lh > 0) fetch(0);
         if (Lh > 0) cp_async_wait_prior(); else cp_async_wait_all();
         __syncthreads();                    // pool data and first layer in
 
         // ---- forward: first layer on the CUDA cores
-        for (int e = tid; e < TH; e += NT) {
+        for (int e = tid; e < PH; e += NT) {
           const int pp = e / Hp, o = e - pp * Hp;
           float z = 0.0f;
           if (o < H) {
@@ -619,17 +720,47 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
           cp_async_wait_all();
           __syncthreads();                  // W[h] landed, S(h) complete
           if (p.n_wbuf == 2 && h + 1 < Lh) fetch(h + 1);
-          float acc[NPW][4];
-          prod_points<NPW, false>(act.S(h), wslot(h), acc);
-          mark(PH_FWD_PROD);
           const float* bias = bh + (h % p.n_wbuf) * Hp;
+          if constexpr (WIDE) {
+            float acc[4][4];
+            prod_wide<P, Hp, false>(act.S(h), wslot(h), acc);
+            mark(PH_FWD_PROD);
+            const int c0 = wide_col<P, false>(warp, lane, 0);
+            float bv[4];
+            load_row<4>(bv, bias, c0, 0);
+            // four adjacent units of a point: one float4 of S and of C
+            // (or of the stash's z)
 #pragma unroll
-          for (int jj = 0; jj < NPW; ++jj) {
+            for (int i = 0; i < 4; ++i) {
+              const int r = wide_row<P>(warp, lane, i);
+              const int idx = sw(r, c0, Hp);
+              float z[4], sv[4], cv[4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = (warp & 1) * 16 + g + ((e & 2) ? 8 : 0);
-              const int cc = out_col<NPW, false>(warp, t4, jj, e);
-              put_act(act, h + 1, sw(r, cc, Hp), acc[jj][e] + bias[cc]);
+              for (int j = 0; j < 4; ++j) {
+                z[j] = acc[i][j] + bv[j];
+                sincos30(z[j], sv[j], cv[j]);
+              }
+              *reinterpret_cast<float4*>(act.S(h + 1) + idx) =
+                  make_float4(sv[0], sv[1], sv[2], sv[3]);
+              if (RC)
+                __stcg(reinterpret_cast<float4*>(act.Z(h + 1) + idx),
+                       make_float4(z[0], z[1], z[2], z[3]));
+              else
+                *reinterpret_cast<float4*>(act.C(h + 1) + idx) =
+                    make_float4(cv[0], cv[1], cv[2], cv[3]);
+            }
+          } else {
+            float acc[NPW][4];
+            prod_points<NPW, false>(act.S(h), wslot(h), acc);
+            mark(PH_FWD_PROD);
+#pragma unroll
+            for (int jj = 0; jj < NPW; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = (warp & 1) * 16 + g + ((e & 2) ? 8 : 0);
+                const int cc = out_col<NPW, false>(warp, t4, jj, e);
+                put_act(act, h + 1, sw(r, cc, Hp), acc[jj][e] + bias[cc]);
+              }
             }
           }
           if (p.n_wbuf == 1 && h + 1 < Lh) {
@@ -645,9 +776,11 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
         }
         mark(PH_FWD_EPI);
 
-        // ---- head, hard-BC affine map, weighted residual: 8 threads a point
-        {
-          const int pp = tid >> 3, q = tid & 7;
+        // ---- head, hard-BC affine map, weighted residual: 8 threads a
+        // point, a tile at a time (one copy of the code: fewer registers)
+#pragma unroll 1
+        for (int tt = 0; tt < NTP; ++tt) {
+          const int pp = tt * T + (tid >> 3), q = tid & 7;
           const float* SL = act.S(Lh);
           // (loops over D_in, D_out run to 3 with a guard, so that the
           // small arrays stay in registers)
@@ -700,45 +833,66 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
           }
           for (int s = 16; s > 0; s >>= 1)
             lp += __shfl_xor_sync(0xffffffffu, lp, s);
-          if (lane == 0) red[warp] = lp;
+          if (lane == 0) red[tt * (NT / 32) + warp] = lp;
         }
         if (RC) cp_async_wait_all();
         __syncthreads();
         if (tid == 0) {
-          float s = 0.0f;
-          for (int ww = 0; ww < NT / 32; ++ww) s += red[ww];
-          lblock = first ? s : lblock + s;
+#pragma unroll
+          for (int tt = 0; tt < NTP && tt < nt; ++tt) {
+            float s = 0.0f;
+            for (int ww = 0; ww < NT / 32; ++ww) s += red[tt * (NT / 32) + ww];
+            lblock = first && tt == 0 ? s : lblock + s;
+          }
         }
 
-        // ---- backward: head (CUDA cores)
+        // ---- backward: head (CUDA cores); each column sum a tile at a
+        // time, added to the row in tile order
         {
           const float* SL = act.S(Lh);
           const long long oo = off_out(p);
-          if (tid < CR * Hp) {              // gW_out[k][e] over the tile
+          if (tid < CR * Hp) {              // gW_out[k][e]
             const int k = tid / CR, part = tid % CR;
-            float s3[3] = {0.0f, 0.0f, 0.0f};
-            for (int pp = part; pp < T; pp += CR) {
-              const float hv = SL[sw(pp, k, Hp)];
+            const bool mine = part == 0 && k < H;
+            float* dst = prow + oo + k * Do;
+            float r3[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-              for (int e = 0; e < 3; ++e) s3[e] = fmaf(hv, GR[pp * 4 + e], s3[e]);
+            for (int tt = 0; tt < NTP && tt < nt; ++tt) {
+              float s3[3] = {0.0f, 0.0f, 0.0f};
+              for (int pp = tt * T + part; pp < (tt + 1) * T; pp += CR) {
+                const float hv = SL[sw(pp, k, Hp)];
+#pragma unroll
+                for (int e = 0; e < 3; ++e)
+                  s3[e] = fmaf(hv, GR[pp * 4 + e], s3[e]);
+              }
+#pragma unroll
+              for (int e = 0; e < 3; ++e) {
+                s3[e] = col_sum<CR>(s3[e]);
+                if (mine && e < Do)
+                  r3[e] = tt ? r3[e] + s3[e] : row_start(dst + e, s3[e], first);
+              }
             }
 #pragma unroll
-            for (int e = 0; e < 3; ++e) s3[e] = col_sum<CR>(s3[e]);
-            if (part == 0 && k < H)
-#pragma unroll
-              for (int e = 0; e < 3; ++e)
-                if (e < Do) add_row(prow + oo + k * Do + e, s3[e], first);
+            for (int e = 0; e < 3; ++e)
+              if (mine && e < Do) __stcg(dst + e, r3[e]);
           }
           if (warp == NT / 32 - 1) {        // gb_out: a lane a point
+            float* dst = prow + oo + H * Do;
 #pragma unroll
             for (int e = 0; e < 3; ++e) {
-              const float s = col_sum<32>(GR[lane * 4 + e]);
-              if (lane == 0 && e < Do) add_row(prow + oo + H * Do + e, s, first);
+              float r = 0.0f;
+#pragma unroll
+              for (int tt = 0; tt < NTP && tt < nt; ++tt) {
+                const float s = col_sum<32>(GR[(tt * T + lane) * 4 + e]);
+                r = tt ? r + s : (lane == 0 && e < Do
+                                      ? row_start(dst + e, s, first) : s);
+              }
+              if (lane == 0 && e < Do) __stcg(dst + e, r);
             }
           }
           // g_z of the last hidden layer into C(Lh)
           float* CL = act.C(Lh);
-          for (int e = tid; e < TH; e += NT) {
+          for (int e = tid; e < PH; e += NT) {
             const int pp = e / Hp, k = e - pp * Hp;
             float s = 0.0f;
             if (k < H)
@@ -767,29 +921,67 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
           float* grow = prow + off_hid(p, h);
           if (tid < CR * Hp) {              // bias gradient
             const int o = tid / CR, part = tid % CR;
-            float s = 0.0f;
-            for (int pp = part; pp < T; pp += CR) s += gz[sw(pp, o, Hp)];
-            s = col_sum<CR>(s);
-            if (part == 0 && o < H) add_row(grow + H * H + o, s, first);
-          }
-          prod_wgrad<NPW>(act.S(h), gz, H, grow, first);
-          mark(PH_BWD_WGRAD);
-          float acc[NPW][4];
-          prod_points<NPW, true>(gz, wslot(h), acc);
-          if (RC && h >= 1) {
-            cp_async_wait_all();
-            __syncthreads();                // z of layer h - 1 in C(h - 1)
-          }
-          float* Cb = act.C(h);
+            const bool mine = part == 0 && o < H;
+            float* dst = grow + H * H + o;
+            float r = 0.0f;
 #pragma unroll
-          for (int jj = 0; jj < NPW; ++jj) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = (warp & 1) * 16 + g + ((e & 2) ? 8 : 0);
-              const int idx = sw(r, out_col<NPW, true>(warp, t4, jj, e), Hp);
-              Cb[idx] = acc[jj][e] * (OMEGA * Cb[idx]);
-              if (RC && h > 0) prepare(act, h - 1, idx);
+            for (int tt = 0; tt < NTP && tt < nt; ++tt) {
+              float s = 0.0f;
+              for (int pp = tt * T + part; pp < (tt + 1) * T; pp += CR)
+                s += gz[sw(pp, o, Hp)];
+              s = col_sum<CR>(s);
+              if (mine) r = tt ? r + s : row_start(dst, s, first);
             }
+            if (mine) __stcg(dst, r);
+          }
+          prod_wgrad<NPW>(act.S(h), gz, H, grow, first,
+                          NTP == 1 ? T : nt * T);
+          mark(PH_BWD_WGRAD);
+          float* Cb = act.C(h);
+          if constexpr (WIDE) {
+            float acc[4][4];
+            prod_wide<P, Hp, true>(gz, wslot(h), acc);
+            if (RC && h >= 1) {
+              cp_async_wait_all();
+              __syncthreads();              // z of layer h - 1 in C(h - 1)
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int idx = sw(wide_row<P>(warp, lane, i),
+                                   wide_col<P, true>(warp, lane, j), Hp);
+                Cb[idx] = acc[i][j] * (OMEGA * Cb[idx]);
+              }
+            // (a loop of its own, not unrolled: one sincosf in the code)
+            if (RC && h > 0)
+#pragma unroll 1
+              for (int q = 0; q < 16; ++q)
+                prepare(act, h - 1,
+                        sw(wide_row<P>(warp, lane, q >> 2),
+                           wide_col<P, true>(warp, lane, q & 3), Hp));
+          } else {
+            float acc[NPW][4];
+            prod_points<NPW, true>(gz, wslot(h), acc);
+            if (RC && h >= 1) {
+              cp_async_wait_all();
+              __syncthreads();              // z of layer h - 1 in C(h - 1)
+            }
+#pragma unroll
+            for (int jj = 0; jj < NPW; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = (warp & 1) * 16 + g + ((e & 2) ? 8 : 0);
+                const int idx = sw(r, out_col<NPW, true>(warp, t4, jj, e), Hp);
+                Cb[idx] = acc[jj][e] * (OMEGA * Cb[idx]);
+              }
+            if (RC && h > 0)
+#pragma unroll 1
+              for (int q = 0; q < 4 * NPW; ++q) {
+                const int r = (warp & 1) * 16 + g + ((q & 2) ? 8 : 0);
+                prepare(act, h - 1,
+                        sw(r, out_col<NPW, true>(warp, t4, q >> 2, q & 3), Hp));
+              }
           }
           if (p.n_wbuf == 1 && h >= 1) {
             __syncthreads();                // every warp is done with W[h]
@@ -804,27 +996,42 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
         if (tid < CR * Hp) {
           const float* C0 = act.C(0);
           const int o = tid / CR, part = tid % CR;
-          float sw3[3] = {0.0f, 0.0f, 0.0f}, sb = 0.0f;
-          for (int pp = part; pp < T; pp += CR) {
-            const float gzv = C0[sw(pp, o, Hp)];
-            sb += gzv;
+          const bool mine = part == 0 && o < H;
+          float rw[3] = {0.0f, 0.0f, 0.0f}, rb = 0.0f;
 #pragma unroll
-            for (int k = 0; k < 3; ++k) sw3[k] = fmaf(X[pp * 4 + k], gzv, sw3[k]);
+          for (int tt = 0; tt < NTP && tt < nt; ++tt) {
+            float sw3[3] = {0.0f, 0.0f, 0.0f}, sb = 0.0f;
+            for (int pp = tt * T + part; pp < (tt + 1) * T; pp += CR) {
+              const float gzv = C0[sw(pp, o, Hp)];
+              sb += gzv;
+#pragma unroll
+              for (int k = 0; k < 3; ++k)
+                sw3[k] = fmaf(X[pp * 4 + k], gzv, sw3[k]);
+            }
+            sb = col_sum<CR>(sb);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) sw3[k] = col_sum<CR>(sw3[k]);
+            if (mine) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k)
+                if (k < Di)
+                  rw[k] = tt ? rw[k] + sw3[k]
+                             : row_start(prow + k * H + o, sw3[k], first);
+              rb = tt ? rb + sb
+                      : row_start(prow + (long long)Di * H + o, sb, first);
+            }
           }
-          sb = col_sum<CR>(sb);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) sw3[k] = col_sum<CR>(sw3[k]);
-          if (part == 0 && o < H) {
+          if (mine) {
 #pragma unroll
             for (int k = 0; k < 3; ++k)
-              if (k < Di) add_row(prow + k * H + o, sw3[k], first);
-            add_row(prow + (long long)Di * H + o, sb, first);
+              if (k < Di) __stcg(prow + k * H + o, rw[k]);
+            __stcg(prow + (long long)Di * H + o, rb);
           }
         }
-        __syncthreads();                    // buffers free for the next tile
-        // the next tile's pool data, in flight while this block finishes
-        // the tile or waits at the barriers
-        if (tile + 1 < tile1) fetch_pool(it, tile + 1);
+        __syncthreads();                    // buffers free for the next pass
+        // the next pass's pool data, in flight while this block finishes
+        // the pass or waits at the barriers
+        if (tile + NTP < tile1) fetch_pool(it, tile + NTP);
         else if (it + 1 < p.n_iters) fetch_pool(it + 1, tile0);
         mark(PH_BWD_FIRST);
       }
@@ -909,17 +1116,17 @@ __global__ void __launch_bounds__(NT, 1) fit_persistent(const Args a) {
   }
 }
 
-template <int NPW, bool RC>
+template <int NPW, bool RC, int NTP>
 int launch(const Args& args, cudaStream_t stream) {
   const Plan& p = args.p;
   cudaError_t err = cudaFuncSetAttribute(
-      fit_persistent<NPW, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem_bytes);
+      fit_persistent<NPW, RC, NTP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem_bytes);
   if (err == cudaSuccess) {
     void* kargs[] = {const_cast<Args*>(&args)};
-    err = cudaLaunchCooperativeKernel((const void*)fit_persistent<NPW, RC>,
-                                      dim3(p.G), dim3(NT), kargs,
-                                      (size_t)p.smem_bytes, stream);
+    err = cudaLaunchCooperativeKernel(
+        (const void*)fit_persistent<NPW, RC, NTP>, dim3(p.G), dim3(NT),
+        kargs, (size_t)p.smem_bytes, stream);
   }
   // read the runtime's last error even on failure: a refused launch must
   // not stay behind for the next caller's check
@@ -927,13 +1134,18 @@ int launch(const Args& args, cudaStream_t stream) {
   return (int)(err != cudaSuccess ? err : last);
 }
 
+// two tiles a pass only at H padded to 64 with sin and cos kept (fit_run
+// checks)
 template <bool RC>
 int launch_npw(const Args& args, cudaStream_t stream) {
   switch (args.p.Hp / 32) {
-    case 1: return launch<1, RC>(args, stream);
-    case 2: return launch<2, RC>(args, stream);
-    case 3: return launch<3, RC>(args, stream);
-    default: return launch<4, RC>(args, stream);
+    case 1: return launch<1, RC, 1>(args, stream);
+    case 2:
+      if constexpr (!RC)
+        if (args.p.pass_tiles == 2) return launch<2, false, 2>(args, stream);
+      return launch<2, RC, 1>(args, stream);
+    case 3: return launch<3, RC, 1>(args, stream);
+    default: return launch<4, RC, 1>(args, stream);
   }
 }
 
@@ -970,6 +1182,7 @@ int fit_run(float* params, const float* x, const float* A, const float* c,
   p.Hp = (int)plan[F_HP]; p.n_params = plan[F_N_PARAMS];
   p.n_tiles = (int)plan[F_N_TILES];
   p.tiles_per_block = (int)plan[F_TILES_PER_BLOCK];
+  p.pass_tiles = (int)plan[F_PASS_TILES];
   p.n_work = (int)plan[F_N_WORK]; p.G = (int)plan[F_G];
   p.chunk = (int)plan[F_CHUNK]; p.pass_cols = (int)plan[F_PASS_COLS];
   p.n_wbuf = (int)plan[F_N_WBUF]; p.recompute = (int)plan[F_RECOMPUTE];
@@ -989,6 +1202,8 @@ int fit_run(float* params, const float* x, const float* A, const float* c,
       || (long long)p.G * p.chunk < p.n_params
       || (long long)p.n_work * p.tiles_per_block < p.n_tiles
       || (long long)p.n_tiles * T < p.B
+      || (p.pass_tiles != 1
+          && (p.pass_tiles != 2 || p.Hp != 64 || p.recompute))
       || (p.recompute && !zstash) || (p.moments_global && !moments)
       || 4 * smem_layout(p).total != p.smem_bytes)
     return (int)cudaErrorInvalidValue;

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..models.siren import SirenConfig, apply_siren
-from ..utils import cuda_build
+from ..utils import cuda_build, spans
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -30,6 +30,7 @@ ADAM_EPS = 1e-8
 _SOURCES = ("fitkernel.cu",)
 _NT = 256                      # threads per block (.cu)
 _T = 32                        # points per tile (.cu)
+_WIDE = 4096                   # outputs a pass that take the 4 x 4 products
 _SMEM_LIMIT = 227 * 1024       # H100 shared memory a block can use
 _CHUNK_MAX = 1024              # Adam slice a block aims for; columns a pass
 _COOP_TOO_LARGE = 720          # cudaErrorCooperativeLaunchTooLarge
@@ -40,8 +41,8 @@ launches = 0
 
 # the order of the int64 plan array that fit_run reads (.cu: PlanField)
 _PLAN_FIELDS = ("D_in", "D_out", "H", "Lh", "B", "K", "n_iters", "Hp",
-                "n_params", "n_tiles", "tiles_per_block", "n_work", "G",
-                "chunk", "pass_cols", "n_wbuf", "recompute",
+                "n_params", "n_tiles", "tiles_per_block", "pass_tiles",
+                "n_work", "G", "chunk", "pass_cols", "n_wbuf", "recompute",
                 "moments_global", "ld_part", "row_groups", "smem_bytes")
 # phases timed by thread 0 of block 0 when asked (.cu: Phase)
 PHASES = ("first", "fwd_prod", "fwd_epi", "head", "bwd_wgrad", "bwd_igrad",
@@ -54,8 +55,10 @@ class FitPlan(NamedTuple):
     The fit runs as G blocks of _NT threads, all resident at once. Tile t
     holds points [t * _T, (t + 1) * _T) of every batch; block b < n_work
     owns tiles [b * tiles_per_block, ...) and every block owns parameters
-    [b * chunk, ...) with their Adam moments (`tiles`, `params`). H is
-    padded to Hp, a multiple of 32. sin and cos of every layer stay in
+    [b * chunk, ...) with their Adam moments (`tiles`, `params`). A block
+    takes its tiles pass_tiles at a time through every layer. H is padded
+    to Hp, a multiple of 32; a pass of _WIDE outputs (pass points x Hp)
+    runs the 4 x 4 products (`wide`). sin and cos of every layer stay in
     shared memory unless `recompute`, which keeps each layer's z in a
     global stash and recomputes them; hidden weights are staged through
     n_wbuf buffers. Each of the n_work partial-gradient rows (and the
@@ -75,6 +78,7 @@ class FitPlan(NamedTuple):
     n_params: int
     n_tiles: int
     tiles_per_block: int
+    pass_tiles: int
     n_work: int
     G: int
     chunk: int
@@ -92,6 +96,10 @@ class FitPlan(NamedTuple):
         t0 = b * self.tiles_per_block
         return range(t0, min(t0 + self.tiles_per_block, self.n_tiles))
 
+    @property
+    def wide(self) -> bool:
+        return _T * self.pass_tiles * self.Hp == _WIDE
+
     def params(self, b: int) -> range:
         q0 = min(b * self.chunk, self.n_params)
         return range(q0, min(q0 + self.chunk, self.n_params))
@@ -102,25 +110,29 @@ class FitPlan(NamedTuple):
 
 
 def _smem_bytes(Hp, Lh, chunk, pass_cols, n_wbuf, recompute,
-                moments_global, row_groups):
+                moments_global, row_groups, pass_tiles):
     """Shared memory of one block (the .cu's smem_layout, in bytes)."""
-    th = _T * Hp
-    act = (5 if recompute else 2 * (Lh + 1)) * th
+    pts = _T * pass_tiles
+    act = (5 if recompute else 2 * (Lh + 1)) * pts * Hp
     nbuf = n_wbuf if Lh > 0 else 0
-    # hidden weights and their biases, first layer, head, the tile's pool
+    # hidden weights and their biases, first layer, head, the pass's pool
     # data, GR, loss sums
-    small = nbuf * (Hp * Hp + Hp) + 4 * Hp + 4 * Hp + 4 + 20 * _T + 4 * _T \
-        + 32
+    small = nbuf * (Hp * Hp + Hp) + 4 * Hp + 4 * Hp + 4 + 20 * pts \
+        + 4 * pts + 32
     moments = 0 if moments_global else 2 * chunk
     return 4 * (act + small + moments + row_groups * pass_cols)
 
 
-def fit_plan(D_in, D_out, H, Lh, B, K, n_iters, n_sm, recompute=None):
+def fit_plan(D_in, D_out, H, Lh, B, K, n_iters, n_sm, recompute=None,
+             pass_tiles=None):
     """The launch plan for a fit on a card with `n_sm` SMs. recompute=None
     keeps sin and cos when they fit (else recomputes them); True or False
-    forces the choice. Raises ValueError for what the kernel cannot run:
-    D_in or D_out other than 2 or 3, H outside 1..128, or kept sin and cos
-    that do not fit when forced."""
+    forces the choice. pass_tiles=None takes two tiles a pass where one
+    gives half of _WIDE outputs (Hp = 64), the blocks own two or more and
+    sin and cos kept fit beside them, else one; 1 or 2 forces it. Raises
+    ValueError for what the kernel cannot run: D_in or D_out other than 2
+    or 3, H outside 1..128, or a forced choice that does not fit or that
+    the kernel does not take."""
     if D_in not in (2, 3) or D_out not in (2, 3) or not 1 <= H <= 128 \
             or Lh < 0 or B < 1 or K < 1 or n_iters < 1 or n_sm < 1:
         raise ValueError(f"fused fit: unsupported shape D_in={D_in} "
@@ -137,20 +149,26 @@ def fit_plan(D_in, D_out, H, Lh, B, K, n_iters, n_sm, recompute=None):
     pass_cols = min(chunk, _CHUNK_MAX)
     # enough row groups to give every thread a column of one
     row_groups = max(1, min(n_work, 16, _NT // (pass_cols // 4)))
-    # (recompute, n_wbuf, moments_global), cheapest first; the last fits
-    # any depth at H <= 128
-    modes = [(False, 2, False), (False, 1, False), (True, 2, False),
-             (True, 1, False), (True, 1, True)]
-    for rc, nb, mg in modes:
-        if recompute is not None and rc != recompute:
+    # (pass_tiles, recompute, n_wbuf, moments_global), cheapest first; the
+    # last fits any depth at H <= 128. Two tiles a pass double the
+    # activations, so they come with sin and cos kept only.
+    modes = [(1, False, 2, False), (1, False, 1, False), (1, True, 2, False),
+             (1, True, 1, False), (1, True, 1, True)]
+    if 2 * _T * Hp == _WIDE and tpb >= 2:
+        modes = [(2, False, 2, False), (2, False, 1, False)] + modes
+    for pt, rc, nb, mg in modes:
+        if recompute is not None and rc != recompute \
+                or pass_tiles is not None and pt != pass_tiles:
             continue
-        smem = _smem_bytes(Hp, Lh, chunk, pass_cols, nb, rc, mg, row_groups)
+        smem = _smem_bytes(Hp, Lh, chunk, pass_cols, nb, rc, mg, row_groups,
+                           pt)
         if smem <= _SMEM_LIMIT:
             return FitPlan(D_in, D_out, H, Lh, B, K, n_iters, Hp, n_params,
-                           n_tiles, tpb, n_work, G, chunk, pass_cols, nb, rc,
-                           mg, -(-n_params // 4) * 4, row_groups, smem)
-    raise ValueError(f"fused fit: sin and cos of Lh={Lh}, H={H} exceed "
-                     f"shared memory")
+                           n_tiles, tpb, pt, n_work, G, chunk, pass_cols, nb,
+                           rc, mg, -(-n_params // 4) * 4, row_groups, smem)
+    raise ValueError(f"fused fit: no plan for Lh={Lh}, H={H}, B={B} "
+                     f"(recompute={recompute}, pass_tiles={pass_tiles}) "
+                     f"fits shared memory")
 
 
 def iteration_work(cfg: SirenConfig, B: int):
@@ -231,7 +249,11 @@ def _cuda_adam_fit(params, cfg, pool, n_iters, lr):
     K, B, D_in, D_out, H, Lh = _shapes(params, pool)
     plan = fit_plan(D_in, D_out, H, Lh, B, K, n_iters,
                     _sm_count(pool[0].device))
-    return run_plan(plan, params, pool, lr)
+    out = run_plan(plan, params, pool, lr)
+    # a traced frame's launches that ran the 4 x 4 products (0 counted
+    # too, so that a frame of narrow launches reads 0; no sync)
+    spans.count("fit_wide_launches", int(plan.wide))
+    return out
 
 
 def run_plan(plan: FitPlan, params, pool, lr, phases=None, lib=None):
@@ -302,6 +324,7 @@ def fused_adam_fit(params, cfg: SirenConfig, pool_xactw, n_iters, lr):
             f"fused fit: nonlinearity {cfg.nonlinearity!r} (only 'sine')")
     if pool_xactw[0].is_cuda:
         return _cuda_adam_fit(params, cfg, pool_xactw, n_iters, lr)
+    spans.count("fit_wide_launches", 0)      # the twin launches nothing
     return reference_adam_fit(params, cfg, pool_xactw, n_iters, lr)
 
 

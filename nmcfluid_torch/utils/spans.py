@@ -47,6 +47,10 @@ and the counters
                  the points sim/sampling.py::fluid_points draws in its
                  rounds after the first (scenes with an obstacle; 0 where
                  one round filled every slot)
+    fit_wide_launches
+                 the fused fits' kernel launches whose plan runs the 4 x 4
+                 micro-tiles (sim/fitkernel.py; 0 for the others and for
+                 the CPU twin)
 
 fit_targets, bc_affine and key_draw nest inside the other two and also
 count the head solve's ls_head + 1 batches, so the pool's own points take

@@ -54,8 +54,16 @@ def _check_plan(plan, n_sm):
     assert plan.smem_bytes <= 227 * 1024
     assert plan.smem_bytes == fk._smem_bytes(
         plan.Hp, plan.Lh, plan.chunk, plan.pass_cols, plan.n_wbuf,
-        plan.recompute, plan.moments_global, plan.row_groups)
+        plan.recompute, plan.moments_global, plan.row_groups,
+        plan.pass_tiles)
     assert len(plan.array()) == len(fk._PLAN_FIELDS)
+    # two tiles a pass only where they make a wide pass, with sin and cos
+    # kept, in blocks that own two or more
+    assert plan.pass_tiles in (1, 2)
+    if plan.pass_tiles == 2:
+        assert plan.Hp == 64 and not plan.recompute
+        assert plan.tiles_per_block >= 2 and plan.wide
+    assert plan.wide == (fk._T * plan.pass_tiles * plan.Hp == 4096)
 
 
 @pytest.mark.parametrize("n_sm", SM_COUNTS)
@@ -77,7 +85,54 @@ def test_every_depth_fits_a_block(H, Lh):
     if plan.recompute:       # no term of the layout grows with depth
         assert plan.smem_bytes == fk._smem_bytes(
             plan.Hp, 1, plan.chunk, plan.pass_cols, plan.n_wbuf, True,
-            plan.moments_global, plan.row_groups)
+            plan.moments_global, plan.row_groups, 1)
+
+
+@pytest.mark.parametrize("Lh", (0, 7, 40, 200))
+@pytest.mark.parametrize("H", (32, 64, 96, 128))
+def test_every_depth_fits_a_block_with_two_tile_passes(H, Lh):
+    """test_every_depth_fits_a_block's grid where the blocks own four tiles
+    (B = 16,384), so that two-tile passes are open to the plan: within
+    shared memory at every depth, and taken at H padded to 64 exactly where
+    sin and cos of two tiles fit (forced, they raise elsewhere)."""
+    plan = fk.fit_plan(2, 2, H, Lh, 16384, 8, 100, 132)
+    _check_plan(plan, 132)
+    assert plan.tiles_per_block == 4
+    fits = fk._smem_bytes(-(-H // 32) * 32, Lh, plan.chunk, plan.pass_cols,
+                          1, False, False, plan.row_groups, 2) \
+        <= fk._SMEM_LIMIT
+    assert plan.pass_tiles == (2 if H == 64 and fits else 1)
+    if plan.pass_tiles == 1 and H != 64:
+        with pytest.raises(ValueError):
+            fk.fit_plan(2, 2, H, Lh, 16384, 8, 100, 132, pass_tiles=2)
+
+
+def test_two_tile_passes_where_a_tile_gives_half_a_wide_pass():
+    """Smoke (5 x 64, 128 blocks of 4 tiles) takes its tiles two at a
+    time, 64 points x 64 units a pass, with one weight buffer (two do not
+    fit: 243,600 B); Taylor-Green (one tile a block) and karman (one tile
+    already gives 4,096 outputs at Hp = 128) take one; the ragged batch of
+    16,344 points leaves its last block three tiles."""
+    smoke = _plan("smoke", 132)
+    assert (smoke.pass_tiles, smoke.n_wbuf, smoke.recompute, smoke.wide,
+            smoke.tiles_per_block) == (2, 1, False, True, 4)
+    assert smoke.smem_bytes == 226960
+    assert fk._smem_bytes(64, 5, smoke.chunk, smoke.pass_cols, 2, False,
+                          False, smoke.row_groups, 2) == 243600
+    tg, karman = _plan("tg", 132), _plan("karman", 132)
+    assert (tg.pass_tiles, tg.wide, tg.n_wbuf) == (1, False, 2)
+    assert (karman.pass_tiles, karman.wide, karman.n_wbuf) == (1, True, 1)
+    ragged = fk.fit_plan(3, 3, 64, 5, 16344, 512, 10000, 132)
+    assert (ragged.pass_tiles, ragged.n_tiles) == (2, 511)
+    assert len(ragged.tiles(ragged.n_work - 1)) == 3
+    one = _plan("smoke", 132, pass_tiles=1)
+    assert (one.pass_tiles, one.n_wbuf, one.wide) == (1, 2, False)
+    for kw in (dict(pass_tiles=2, recompute=True), dict(pass_tiles=3)):
+        with pytest.raises(ValueError):
+            _plan("smoke", 132, **kw)
+    for shape in ("tg", "karman"):
+        with pytest.raises(ValueError):
+            _plan(shape, 132, pass_tiles=2)
 
 
 def test_taylor_green_plan():

@@ -24,7 +24,7 @@ import torch
 from nmcfluid_torch.ops import radial_tables as rt
 from nmcfluid_torch.sim import fitkernel as fk
 from nmcfluid_torch.sim.fitprobe import (CYCLING_ATOL, SCENE3D_ATOL,
-                                          make_problem)
+                                          SHAPES, make_problem)
 from nmcfluid_torch.wost import pallas_probe as pp
 
 pytestmark = pytest.mark.gpu
@@ -126,6 +126,49 @@ def test_two_calls_are_bit_identical_on_card(cuda):
     p_b, l_b = fk.fused_adam_fit(params, cfg, pool, 40, 1e-3)
     assert torch.equal(l_a, l_b)
     for (a, b), (c, d) in zip(p_a, p_b):
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_two_tile_passes_equal_one_tile_passes_on_card(cuda):
+    """At smoke's shape the plan takes its tiles two at a time (64-point
+    passes, 4 x 4 micro-tiles, one weight buffer); the same fit with one
+    tile a pass (2 x 4 micro-tiles, two weight buffers) gives the same
+    bits, parameters and loss, over a fit that cycles the pool: every
+    output keeps its k order and every sum its point and tile order."""
+    cfg, params, pool = make_problem(cuda, D_in=3, D_out=3, H=64, Lh=5,
+                                     K=3, B=16384, seed=6)
+    n_sm = fk._sm_count(cuda)
+    two = fk.fit_plan(3, 3, 64, 5, 16384, 3, 40, n_sm)
+    one = fk.fit_plan(3, 3, 64, 5, 16384, 3, 40, n_sm, pass_tiles=1)
+    assert (two.pass_tiles, two.wide, two.n_wbuf) == (2, True, 1)
+    assert (one.pass_tiles, one.wide) == (1, False)
+    p_a, l_a = fk.run_plan(two, params, pool, 1e-3)
+    p_b, l_b = fk.run_plan(one, params, pool, 1e-3)
+    assert torch.equal(l_a, l_b)
+    for (a, b), (c, d) in zip(p_a, p_b):
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_two_tile_passes_with_an_odd_ragged_block_on_card(cuda):
+    """B = 16,344 at smoke's shape: 511 tiles, so the last block owns 3
+    tiles, takes a pass of two and a pass of one, and the last tile is
+    ragged (24 points). Against the twin at the smoke family's atol
+    (25 iterations at lr 1e-3, the loss to 1e-2), and bit for bit the
+    one-tile plan."""
+    cfg, params, pool = make_problem(cuda, D_in=3, D_out=3, H=64, Lh=5,
+                                     K=2, B=16344)
+    n_sm = fk._sm_count(cuda)
+    plan = fk.fit_plan(3, 3, 64, 5, 16344, 2, 25, n_sm)
+    assert (plan.pass_tiles, plan.n_tiles) == (2, 511)
+    assert len(plan.tiles(plan.n_work - 1)) % 2 == 1
+    p_k, l_k = fk.run_plan(plan, params, pool, 1e-3)
+    p_r, l_r = fk.reference_adam_fit(params, cfg, pool, 25, 1e-3)
+    _assert_params_close(p_k, p_r, SHAPES["smoke"][1])
+    torch.testing.assert_close(l_k, l_r, rtol=1e-2, atol=1e-9)
+    one = fk.fit_plan(3, 3, 64, 5, 16344, 2, 25, n_sm, pass_tiles=1)
+    p_1, l_1 = fk.run_plan(one, params, pool, 1e-3)
+    assert torch.equal(l_k, l_1)
+    for (a, b), (c, d) in zip(p_k, p_1):
         assert torch.equal(a, c) and torch.equal(b, d)
 
 
